@@ -1,0 +1,47 @@
+"""Carry state from the JAX package into the port.
+
+``tsu_tpu`` keeps a lattice as a numpy-convertible (R, C) array or as a pair
+of compact (R, C/2) planes, and its ``IsingConfig`` as a frozen dataclass.
+These helpers turn either into the port's tensors and config without
+importing ``tsu_tpu``: callers hand over numpy arrays and plain fields.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from tsu_tpu_torch.config import ConfigurationError, IsingConfig
+from tsu_tpu_torch.ops.checkerboard import split_checkerboard
+
+
+def planes_from_numpy(red, black, *, device=None, dtype=torch.float32):
+    """A pair of (R, C/2) planes (numpy or array-like) as tensors."""
+    red = torch.tensor(np.asarray(red), dtype=dtype, device=device)
+    black = torch.tensor(np.asarray(black), dtype=dtype, device=device)
+    if red.shape != black.shape or red.dim() < 2:
+        raise ConfigurationError(
+            f"planes must share one (..., R, C/2) shape, got "
+            f"{tuple(red.shape)} and {tuple(black.shape)}")
+    return red, black
+
+
+def lattice_to_planes(lattice, *, device=None, dtype=torch.float32):
+    """An (R, C) lattice (numpy or array-like) as the port's (red, black)."""
+    return split_checkerboard(
+        torch.tensor(np.asarray(lattice), dtype=dtype, device=device))
+
+
+def config_from_fields(fields) -> IsingConfig:
+    """An IsingConfig from the fields of the JAX package's IsingConfig: the
+    object itself (any object with those attributes) or a mapping."""
+    names = [f.name for f in dataclasses.fields(IsingConfig)]
+    if isinstance(fields, Mapping):
+        unknown = set(fields) - set(names)
+        if unknown:
+            raise ConfigurationError(f"unknown IsingConfig fields: {sorted(unknown)}")
+        return IsingConfig(**fields)
+    return IsingConfig(**{n: getattr(fields, n) for n in names})
