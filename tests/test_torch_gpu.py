@@ -1,4 +1,6 @@
-"""The CUDA fused-sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA fused-sweep kernels (one lattice, and a batch of lattices)
+against their plain PyTorch versions, and the batched paths on the card
+against the same paths on the CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
 Hopper card and nvcc, run ``python -m pytest -m gpu tests/test_torch_gpu.py``;
@@ -10,12 +12,17 @@ import pytest
 import torch
 
 from tsu_tpu_torch import IsingConfig, IsingGrid
+from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_fused import (
     fused_sweep,
+    fused_sweep_batched,
+    fused_sweep_batched_reference,
     fused_sweep_reference,
     sigmoid_table16,
 )
+from tsu_tpu_torch.rng import sweep_keys
+from tsu_tpu_torch.samplers import anneal_lattice, parallel_tempering_lattice
 
 pytestmark = pytest.mark.gpu
 
@@ -89,3 +96,79 @@ def test_grid_on_cuda_equals_grid_on_cpu(cuda):
     b = IsingGrid((32, 24), periodic=True, seed=5, config=cfg, device="cpu").sample(
         n_samples=3, temperature=2.269)
     np.testing.assert_array_equal(a, b)
+
+
+def _blacks(seed, B, R, C, dtype, device):
+    rng = np.random.default_rng(seed)
+    lat = torch.as_tensor(np.where(rng.random((B, R, C)) < 0.5, 1.0, -1.0), dtype=dtype)
+    return split_checkerboard(lat)[1].contiguous().to(device)
+
+
+@pytest.mark.parametrize("shape,dtype,periodic", [
+    ((3, 64, 64), torch.bfloat16, True),
+    ((2, 18, 20), torch.float32, False),     # R % 8 != 0
+    ((2, 34, 522), torch.bfloat16, False),   # C/2 odd and wider than one tile
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_batched_kernel_matches_plain_version(cuda, shape, dtype, periodic, injected):
+    B, R, C = shape
+    rng = np.random.default_rng(4)
+    b_k = b_r = _blacks(5, *shape, dtype, cuda)
+    temps = torch.as_tensor(np.linspace(0.5, 4.0, B), dtype=torch.float32)
+    tables = sigmoid_table16(1.0, 0.1, temps).to(cuda)
+    for k in range(3):
+        keys = sweep_keys(np.arange(B) + 10, k).to(cuda)
+        U = None
+        if injected:
+            U = torch.as_tensor(rng.integers(0, 1 << 16, (B, 2, R, C // 2)),
+                                dtype=torch.int32, device=cuda)
+        r_k, b_k = fused_sweep_batched(b_k, tables, keys, periodic=periodic, uniforms=U)
+        r_r, b_r = fused_sweep_batched_reference(b_r, tables, keys, periodic=periodic,
+                                                 uniforms=U)
+        assert torch.equal(r_k, r_r) and torch.equal(b_k, b_r), k
+    torch.cuda.synchronize()
+
+
+def test_batched_kernel_element_equals_single_lattice_kernel(cuda):
+    B, seeds, sweep = 4, [3, 5, 7, 9], 2
+    blacks = _blacks(6, B, 32, 40, torch.bfloat16, cuda)
+    tables = sigmoid_table16(1.0, 0.0, torch.tensor([1.5, 2.0, 2.5, 3.0])).to(cuda)
+    before = fused_sweep_batched.launches
+    reds, news = fused_sweep_batched(blacks, tables, sweep_keys(seeds, sweep).to(cuda))
+    assert fused_sweep_batched.launches == before + 1
+    for b in range(B):
+        r1, b1 = fused_sweep(blacks[b], tables[b], seed=seeds[b], sweep=sweep)
+        assert torch.equal(r1, reds[b]) and torch.equal(b1, news[b]), b
+
+
+def test_batched_kernel_rejects_operands_off_the_device(cuda):
+    blacks = _blacks(7, 2, 16, 16, torch.float32, cuda)
+    tables = sigmoid_table16(1.0, 0.0, torch.tensor([2.0, 3.0]))
+    with pytest.raises(ValueError):
+        fused_sweep_batched(blacks, tables, sweep_keys([1, 2], 0).to(cuda))   # tables on the CPU
+
+
+def test_batched_paths_on_cuda_equal_those_on_cpu(cuda):
+    """Kernel and plain version agree bit for bit and host randomness comes
+    from a CPU generator, so each batched path gives the same output on both
+    devices for one seed."""
+    def ensemble(device):
+        out = sample_grid_ensemble(torch.Generator().manual_seed(1),
+                                   torch.ones((3, 16, 16), device=device), [1.5, 2.5, 3.5],
+                                   n_samples=5, n_burnin=10)
+        return [out["magnetization"].cpu(), out["energy"].cpu()]
+
+    def anneal(device):
+        state, e = anneal_lattice(2, (16, 16), n_steps=60, n_chains=2, device=device)
+        return [state.cpu(), torch.tensor(e)]
+
+    def tempering(device):
+        cold, info = parallel_tempering_lattice(3, (16, 16), temperatures=[2.0, 2.4, 2.8],
+                                                n_samples=6, swap_interval=2, n_burnin=4,
+                                                device=device)
+        return [cold.cpu(), torch.from_numpy(info["energies"]),
+                torch.from_numpy(info["final_states"]), torch.from_numpy(info["pair_attempts"])]
+
+    for path in (ensemble, anneal, tempering):
+        for a, b in zip(path(cuda), path(torch.device("cpu"))):
+            assert torch.equal(a, b), path.__name__

@@ -19,14 +19,19 @@ from tsu_tpu.config import IsingConfig as JaxIsingConfig  # noqa: E402
 from tsu_tpu.models.ising import IsingGrid as JaxIsingGrid  # noqa: E402
 from tsu_tpu.ops.checkerboard import split_checkerboard as jax_split  # noqa: E402
 from tsu_tpu.oracle import exact_ising_moments  # noqa: E402
-from tsu_tpu_torch import ConfigurationError, IsingConfig, IsingGrid  # noqa: E402
+from tsu_tpu_torch import (  # noqa: E402
+    ConfigurationError,
+    IsingConfig,
+    IsingGrid,
+    demonstrate_phase_transition,
+)
 from tsu_tpu_torch.interop import (  # noqa: E402
     config_from_fields,
     lattice_to_planes,
     planes_from_numpy,
 )
 from tsu_tpu_torch.ops.checkerboard import merge_checkerboard  # noqa: E402
-from tsu_tpu_torch.ops.checkerboard_fused import fused_sweep  # noqa: E402
+from tsu_tpu_torch.ops.checkerboard_fused import fused_sweep, fused_sweep_batched  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 T = 2.5
@@ -149,9 +154,13 @@ def test_interop_carries_jax_state():
 def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
     code = (
         "import json, sys\n"
-        "import tsu_tpu_torch\n"
+        "import torch\n"
+        "import tsu_tpu_torch, tsu_tpu_torch.samplers\n"
+        "from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble\n"
         "from tsu_tpu_torch.ops import _build\n"
         "tsu_tpu_torch.IsingGrid((4, 4), seed=0).sample(n_samples=2)\n"
+        "sample_grid_ensemble(torch.Generator().manual_seed(0), torch.ones(3, 4, 4),\n"
+        "                     [1.5, 2.5, 3.5], n_samples=2, n_burnin=2)\n"
         "print(json.dumps({'jax': 'jax' in sys.modules,\n"
         "                  'triton': 'triton' in sys.modules,\n"
         "                  'built': _build.fused_sweep_library.cache_info().currsize}))\n"
@@ -164,10 +173,12 @@ def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    before = fused_sweep.launches
+    before = fused_sweep.launches, fused_sweep_batched.launches
     with pytest.raises(ConfigurationError):
         IsingGrid((8, 8), device="cuda")
-    assert fused_sweep.launches == before
+    with pytest.raises(ConfigurationError):
+        demonstrate_phase_transition(sizes=[8], device="cuda")
+    assert (fused_sweep.launches, fused_sweep_batched.launches) == before
 
 
 def test_default_device_is_torch_default():
@@ -179,12 +190,22 @@ def test_default_device_is_torch_default():
     lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4)))),
     lambda: IsingGrid((4, 4)).set_bonds(np.ones((4, 4)), np.ones((4, 4))),
     lambda: IsingGrid((4, 4)).set_coupling(0, 5, 1.0),
-    lambda: IsingGrid((4, 4)).find_ground_state(),
+    lambda: demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1),
     lambda: IsingGrid((4, 4)).sample_observables(mesh=object()),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="slice"):
         call()
+
+
+def test_find_ground_state_returns_a_flat_state_and_its_energy():
+    """An open 8x6 ferromagnet anneals to E0 = -(8*5 + 7*6); the state
+    returned is flat, uniform and has the energy returned."""
+    grid = IsingGrid((8, 6), periodic=False, seed=1)
+    state, energy = grid.find_ground_state(n_steps=400)
+    assert energy == -82.0
+    assert state.shape == (48,) and state.dtype == np.float32
+    assert abs(state.mean()) == 1.0 and grid.energy(state) == energy
 
 
 def test_bad_shapes_and_configs_raise():

@@ -1,8 +1,9 @@
 """tsu_tpu_torch — the PyTorch and CUDA port of tsu_tpu.
 
 The port grows slice by slice beside the JAX package (see ROADMAP.md). It
-imports torch and numpy, never JAX and never ``tsu_tpu``. Its hot loop, the
-fused checkerboard sweep, is a CUDA kernel for Hopper built at first use.
+imports torch and numpy, never JAX and never ``tsu_tpu``. Its hot loops, the
+fused checkerboard sweep of one lattice and of a batch of lattices, are CUDA
+kernels for Hopper built at first use.
 """
 
 from tsu_tpu_torch.config import (
@@ -11,7 +12,7 @@ from tsu_tpu_torch.config import (
     SamplingError,
     TSUError,
 )
-from tsu_tpu_torch.models.ising import IsingGrid
+from tsu_tpu_torch.models.ising import IsingGrid, demonstrate_phase_transition
 
 __all__ = [
     "ConfigurationError",
@@ -19,4 +20,5 @@ __all__ = [
     "IsingGrid",
     "SamplingError",
     "TSUError",
+    "demonstrate_phase_transition",
 ]

@@ -1,14 +1,17 @@
-"""Exception hierarchy and the validated, immutable Ising configuration.
+"""Exception hierarchy, the validated, immutable Ising configuration and the
+device an entry point runs on.
 
-Copied from ``tsu_tpu/config.py`` (the errors and ``IsingConfig``): importing
-that module runs ``tsu_tpu/__init__.py``, which imports JAX, so the PyTorch
-port keeps its own copy.
+The errors and ``IsingConfig`` are copied from ``tsu_tpu/config.py``:
+importing that module runs ``tsu_tpu/__init__.py``, which imports JAX, so the
+PyTorch port keeps its own copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 
 class TSUError(Exception):
@@ -46,3 +49,12 @@ class IsingConfig:
 
     def replace(self, **kwargs) -> "IsingConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device (default: torch.get_default_device());
+    raises if it names a CUDA device that this process cannot use."""
+    device = torch.device(device) if device is not None else torch.get_default_device()
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise ConfigurationError(f"device {device} requested but CUDA is not available")
+    return device

@@ -1,9 +1,14 @@
-// Fused checkerboard heat-bath sweep of the uniform-J 2-D Ising model.
+// Fused checkerboard heat-bath sweeps of the uniform-J 2-D Ising model.
 //
-// Replaces tsu_tpu/ops/checkerboard_fused.py:_fused_sweep_kernel (a Pallas
-// TPU kernel) on NVIDIA Hopper (sm_90a). One launch is one full sweep: red
-// from black, then black from the new red, on the compact (R, C/2) planes of
-// tsu_tpu/ops/checkerboard.py.
+// Replaces two Pallas TPU kernels of tsu_tpu/ops/checkerboard_fused.py on
+// NVIDIA Hopper (sm_90a): _fused_sweep_kernel (one lattice) and
+// _fused_sweep_kernel_batched (B lattices, each with its own Philox key and
+// threshold table, in one launch). One launch is one full sweep: red from
+// black, then black from the new red, on the compact (R, C/2) planes of
+// tsu_tpu/ops/checkerboard.py. Both kernels run the same tile body; the
+// batched one takes its lattice from blockIdx.z and loads that lattice's key
+// and table, so element b is what the single-lattice kernel gives under b's
+// key.
 //
 // Design. Blocks run in parallel and in no order, so the TPU kernel's
 // in-place update of black cannot be carried over: a block that reads black
@@ -15,7 +20,7 @@
 // neighbours' outputs, recomputed bit-identically), then updates black from
 // the staged red. Spins sit in shared memory as int8; the local field is an
 // exact integer in {-4..4} and indexes a 9-entry 16-bit threshold table that
-// the wrapper computes per sweep.
+// the wrapper computes per sweep (per lattice in the batched kernel).
 //
 // Random numbers. Each site takes one 32-bit word from Philox4x32-10 keyed by
 // (fold_seed(base), sweep) at counter (row, col / 4, 0, 0), output col % 4:
@@ -23,7 +28,8 @@
 // the site's global coordinates, so the halo reds a block redraws equal what
 // the owning block drew. One Philox call serves four sites of a quad;
 // tsu_tpu_torch/rng.py:philox_words is the same generator in PyTorch. With
-// injected uniforms (2, R, C2) int32, [0] drives red and [1] black.
+// injected uniforms (2, R, C2) int32 per lattice, [0] drives red and [1]
+// black.
 //
 // Bound. At bf16 a sweep moves ~3 B/site of compulsory traffic (read black,
 // write red, write black: three half-lattice planes of 2 B), ~3.3 B/site with
@@ -32,7 +38,9 @@
 // the two colour updates, so red is never read back from device memory, and
 // the quad-wide Philox call shares one generator call among four sites. On an
 // H100 SXM at 700 W a 4096^2 sweep takes 93 us, ~0.3 TB/s: the integer and
-// shared-memory work, not HBM, bounds this first version.
+// shared-memory work, not HBM, bounds this first version, and the batched
+// kernel (16 x 1024^2 is the same work) has the same bound. Plane offsets are
+// size_t: B * R * C2 passes 2^31 at 256 lattices of 4096^2.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,8 +95,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// One sweep of the tile (blockIdx.y, blockIdx.x) of one lattice.
 template <typename T>
-__global__ void __launch_bounds__(NT) fused_sweep_kernel(
+__device__ __forceinline__ void sweep_tile(
     const T* __restrict__ black_in, T* __restrict__ red_out, T* __restrict__ black_out,
     const int* __restrict__ table, const int* __restrict__ uniforms, int R, int C2,
     int periodic, uint32_t k0, uint32_t k1) {
@@ -165,6 +174,28 @@ __global__ void __launch_bounds__(NT) fused_sweep_kernel(
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_sweep_kernel(
+    const T* __restrict__ black_in, T* __restrict__ red_out, T* __restrict__ black_out,
+    const int* __restrict__ table, const int* __restrict__ uniforms, int R, int C2,
+    int periodic, uint32_t k0, uint32_t k1) {
+  sweep_tile<T>(black_in, red_out, black_out, table, uniforms, R, C2, periodic, k0, k1);
+}
+
+// Lattice b = blockIdx.z: planes at b * R * C2, table row b, key row b,
+// injected uniforms (if any) at b * 2 * R * C2.
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_sweep_batched_kernel(
+    const T* __restrict__ blacks_in, T* __restrict__ reds_out, T* __restrict__ blacks_out,
+    const int* __restrict__ tables, const uint32_t* __restrict__ keys,
+    const int* __restrict__ uniforms, int R, int C2, int periodic) {
+  const size_t b = blockIdx.z;
+  const size_t plane = (size_t)R * C2;
+  sweep_tile<T>(blacks_in + b * plane, reds_out + b * plane, blacks_out + b * plane,
+                tables + 9 * b, uniforms == nullptr ? nullptr : uniforms + 2 * b * plane,
+                R, C2, periodic, keys[2 * b], keys[2 * b + 1]);
+}
+
 }  // namespace
 
 // One sweep on `stream`. black_in, red_out and black_out are (R, C2) planes of
@@ -185,6 +216,29 @@ extern "C" int tsu_fused_sweep(const void* black_in, void* red_out, void* black_
     fused_sweep_kernel<float><<<grid, NT, 0, s>>>(
         (const float*)black_in, (float*)red_out, (float*)black_out, (const int*)table,
         (const int*)uniforms, R, C2, periodic, k0, k1);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One sweep of B lattices on `stream`. blacks_in, reds_out and blacks_out are
+// (B, R, C2) planes of float32 (is_bf16 == 0) or bfloat16; tables is (B, 9)
+// int32; keys is (B, 2) uint32, row b = (fold_seed(seed_b), sweep_b); uniforms
+// is null or (B, 2, R, C2) int32. 1 <= B <= 65535 (gridDim.z), R is even.
+// Returns cudaGetLastError() after the launch.
+extern "C" int tsu_fused_sweep_batched(const void* blacks_in, void* reds_out, void* blacks_out,
+                                       const void* tables, const void* keys,
+                                       const void* uniforms, int B, int R, int C2,
+                                       int periodic, int is_bf16, void* stream) {
+  const dim3 grid((C2 + TC - 1) / TC, (R + TR - 1) / TR, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    fused_sweep_batched_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
+        (const __nv_bfloat16*)blacks_in, (__nv_bfloat16*)reds_out, (__nv_bfloat16*)blacks_out,
+        (const int*)tables, (const uint32_t*)keys, (const int*)uniforms, R, C2, periodic);
+  } else {
+    fused_sweep_batched_kernel<float><<<grid, NT, 0, s>>>(
+        (const float*)blacks_in, (float*)reds_out, (float*)blacks_out, (const int*)tables,
+        (const uint32_t*)keys, (const int*)uniforms, R, C2, periodic);
   }
   return (int)cudaGetLastError();
 }

@@ -1,37 +1,34 @@
-"""2-D nearest-neighbour Ising grid with uniform coupling, on the fused sweep.
+"""2-D nearest-neighbour Ising grid with uniform coupling, on the fused sweep,
+and the phase-transition scan.
 
 Counterpart of ``tsu_tpu/models/ising.py:IsingGrid`` for even grids with a
-uniform coupling. Observables match the JAX package: M = <sum s>/N,
-C = Var(E)/(T^2 N), chi = Var(m_per_spin) * N / T. Features of the JAX class
-that later slices of the port bring raise ``NotImplementedError`` naming the
-slice (see ROADMAP.md).
+uniform coupling, and of ``demonstrate_phase_transition``. Observables match
+the JAX package: M = <sum s>/N, C = Var(E)/(T^2 N), chi = Var(m_per_spin) *
+N / T. Features of the JAX class that later slices of the port bring raise
+``NotImplementedError`` naming the slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tsu_tpu_torch.config import ConfigurationError, IsingConfig
-from tsu_tpu_torch.models.lattice_sampler import sample_chain, sample_grid
+from tsu_tpu_torch.config import ConfigurationError, IsingConfig, resolve_device
+from tsu_tpu_torch.models.lattice_sampler import (
+    sample_chain,
+    sample_grid,
+    sample_grid_ensemble,
+)
 from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch
 from tsu_tpu_torch.rng import as_generator
+from tsu_tpu_torch.samplers.annealing import anneal_lattice
 
 
 def _not_ported(what: str, slice_: str):
     return NotImplementedError(
         f"{what} is not ported to tsu_tpu_torch yet ({slice_} of ROADMAP.md)")
-
-
-def _resolve_device(device) -> torch.device:
-    """``device`` as a torch.device (default: torch.get_default_device());
-    raises if it names a CUDA device that this process cannot use."""
-    device = torch.device(device) if device is not None else torch.get_default_device()
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise ConfigurationError(f"device {device} requested but CUDA is not available")
-    return device
 
 
 class IsingGrid:
@@ -64,7 +61,7 @@ class IsingGrid:
         self.coupling_strength = coupling_strength
         self.n_spins = rows * cols
         self.config = config or IsingConfig(coupling_strength=coupling_strength)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self._gen = as_generator(seed)
 
     # -- features of later slices -------------------------------------------
@@ -76,9 +73,6 @@ class IsingGrid:
         raise _not_ported(
             "set_coupling (bond planes for lattice neighbours, a dense J "
             "otherwise)", "slices 3 and 4")
-
-    def find_ground_state(self, n_steps: int = 1000):
-        raise _not_ported("find_ground_state (anneal_lattice)", "slice 2")
 
     # -- energetics / sampling -----------------------------------------------
 
@@ -134,6 +128,15 @@ class IsingGrid:
         return {"magnetization": torch.stack(ms).cpu().numpy(),
                 "energy": torch.stack(es).cpu().numpy()}
 
+    def find_ground_state(self, n_steps: int = 1000) -> Tuple[np.ndarray, float]:
+        """Anneal two chains from T = 5.0 to 0.05 over n_steps sweeps;
+        returns the best flat state (rows*cols float32) and its energy."""
+        best, e = anneal_lattice(
+            self._gen, self.shape, J=self.coupling_strength, T_initial=5.0,
+            T_final=0.05, n_steps=n_steps, n_chains=2, periodic=self.periodic,
+            device=self.device)
+        return best.reshape(-1).cpu().numpy(), e
+
     # -- observables ----------------------------------------------------------
 
     def magnetization(self, samples: np.ndarray) -> float:
@@ -153,3 +156,68 @@ class IsingGrid:
         T = self.config.temperature if temperature is None else temperature
         m = np.sum(samples, axis=1) / self.n_spins
         return float((np.mean(m**2) - np.mean(m) ** 2) * self.n_spins / T)
+
+
+def demonstrate_phase_transition(sizes: Sequence[int] = (8, 16, 32),
+                                 temperatures: Optional[np.ndarray] = None,
+                                 n_samples: int = 64, seed: int = 0,
+                                 ensemble: Optional[bool] = None,
+                                 device=None) -> dict:
+    """Scan temperature across T_c ~ 2.269 for several periodic grid sizes.
+
+    Returns {size: {"temperatures", "magnetization", "susceptibility",
+    "specific_heat"}}, numpy arrays over the temperatures. Below T_c a chain
+    starts ordered (a random cold quench freezes into stripe states); above
+    it, from random spins. ``ensemble`` (default on) runs all temperatures of
+    a size as one ensemble, one batched launch per sweep
+    (:func:`sample_grid_ensemble`); ``ensemble=False`` runs
+    ``IsingGrid.sample`` once per temperature. Every even size takes the
+    ensemble; odd sizes need the dense path (slice 4).
+    """
+    odd = [size for size in sizes if size % 2]
+    if odd:
+        raise _not_ported(f"odd grid sizes {odd} (dense path)", "slice 4")
+    device = resolve_device(device)
+    if temperatures is None:
+        temperatures = np.linspace(0.5, 4.0, 15)
+    T_c = 2.0 / np.log(1.0 + np.sqrt(2.0))
+    Tn = np.asarray(temperatures, np.float64)
+    results = {}
+    for idx, size in enumerate(sizes):
+        n_spins = size * size
+        if ensemble is None or ensemble:
+            gen = as_generator(seed + idx)
+            Ts = torch.as_tensor(np.asarray(temperatures, np.float32))
+            rand = torch.where(torch.rand((len(Ts), size, size), generator=gen) < 0.5, 1.0, -1.0)
+            lat0 = torch.where((Ts < T_c)[:, None, None], 1.0, rand).to(device)
+            out = sample_grid_ensemble(gen, lat0, Ts, n_samples=n_samples,
+                                       n_burnin=200, n_sweeps=2, periodic=True)
+            m = out["magnetization"].cpu().numpy()   # (n_samples, B), per spin
+            e = out["energy"].cpu().numpy()          # (n_samples, B), total
+            results[size] = {
+                "temperatures": np.asarray(temperatures),
+                "magnetization": np.abs(m.mean(axis=0)),
+                "susceptibility": (m**2).mean(axis=0) * n_spins / Tn
+                - m.mean(axis=0) ** 2 * n_spins / Tn,
+                "specific_heat": ((e**2).mean(axis=0) - e.mean(axis=0) ** 2)
+                / (Tn**2 * n_spins),
+            }
+            continue
+        grid = IsingGrid((size, size), coupling_strength=1.0, periodic=True,
+                         seed=seed + idx, device=device,
+                         config=IsingConfig(n_burnin=200, n_sweeps=2))
+        ordered = np.ones(n_spins, dtype=np.float32)
+        mags, chis, cs = [], [], []
+        for T in temperatures:
+            samples = grid.sample(n_samples=n_samples, temperature=float(T),
+                                  initial_state=ordered if T < T_c else None)
+            mags.append(abs(grid.magnetization(samples)))
+            chis.append(grid.susceptibility(samples, temperature=float(T)))
+            cs.append(grid.specific_heat(samples, temperature=float(T)))
+        results[size] = {
+            "temperatures": np.asarray(temperatures),
+            "magnetization": np.asarray(mags),
+            "susceptibility": np.asarray(chis),
+            "specific_heat": np.asarray(cs),
+        }
+    return results

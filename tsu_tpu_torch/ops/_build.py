@@ -61,10 +61,13 @@ def library_path(name: str, sources: tuple[str, ...]) -> Path:
 
 @functools.cache
 def fused_sweep_library() -> ctypes.CDLL:
-    """The fused-sweep kernel library, built and loaded once per process."""
+    """The fused-sweep kernel library (the single-lattice and the batched
+    kernel), built and loaded once per process."""
     lib = ctypes.CDLL(str(library_path("checkerboard_fused",
                                        ("checkerboard_fused.cu",))))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.tsu_fused_sweep.argtypes = [p, p, p, p, p, i, i, i, u, u, i, p]
     lib.tsu_fused_sweep.restype = i
+    lib.tsu_fused_sweep_batched.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.tsu_fused_sweep_batched.restype = i
     return lib

@@ -152,6 +152,21 @@ def lattice_energy_batch(lattice: torch.Tensor, *, J=1.0, field=0.0,
     return -J * bond - field * s.sum(dims)
 
 
+def plane_energy_batch(red: torch.Tensor, black: torch.Tensor, *, J=1.0,
+                       field=0.0, periodic=True) -> torch.Tensor:
+    """lattice_energy_batch of merge_checkerboard(red, black), taken from the
+    (..., R, C/2) planes without merging them: every bond joins a red site to
+    a black one, so the bond sum is red times its black neighbour sum. The
+    products are small integers, exact in the planes' dtype; the sums are
+    float64."""
+    dims = (-2, -1)
+    bond = (red * neighbor_sum_half(black, True, periodic)).sum(dims, dtype=torch.float64)
+    e = -J * bond
+    if field:
+        e = e - field * (red.sum(dims, dtype=torch.float64) + black.sum(dims, dtype=torch.float64))
+    return e
+
+
 def sample_lattice(generator: torch.Generator, lattice0, *, n_samples: int,
                    temperature, J=1.0, field=0.0, n_burnin: int = 100,
                    n_sweeps: int = 1, periodic: bool = True,

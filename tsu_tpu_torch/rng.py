@@ -10,13 +10,15 @@ Inside the fused sweep every site takes one 32-bit word from Philox4x32-10
 depends only on the site's global coordinates, so any thread block that
 redraws a halo site draws what the site's owner drew. ``philox_words`` is the
 plain PyTorch version of the generator in
-``tsu_tpu_torch/csrc/checkerboard_fused.cu`` and matches it bit for bit.
+``tsu_tpu_torch/csrc/checkerboard_fused.cu`` and matches it bit for bit;
+``sweep_keys`` builds the per-lattice keys of the batched kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -27,8 +29,13 @@ _PHILOX_W0 = 0x9E3779B9
 _PHILOX_W1 = 0xBB67AE85
 
 
-def as_generator(seed: Optional[int]) -> torch.Generator:
-    """A CPU generator seeded with ``seed``; fresh entropy when None."""
+def as_generator(seed: Union[int, torch.Generator, None]) -> torch.Generator:
+    """A CPU generator seeded with ``seed``; fresh entropy when None. A CPU
+    generator passes through as it is."""
+    if isinstance(seed, torch.Generator):
+        if seed.device.type != "cpu":
+            raise ValueError(f"host draws need a CPU generator, got one on {seed.device}")
+        return seed
     gen = torch.Generator(device="cpu")
     if seed is None:
         gen.seed()
@@ -59,6 +66,17 @@ def fold_seed(*components: int) -> int:
     return to_int32(h)
 
 
+def sweep_keys(seeds, sweeps) -> torch.Tensor:
+    """Keys ``(fold_seed(seed), sweep)`` of the batched fused sweep for
+    broadcast-compatible integer arrays ``seeds`` and ``sweeps``, as a
+    (..., 2) int32 CPU tensor; the kernel reads each int32 as the uint32 of
+    the same bits."""
+    folded = np.vectorize(fold_seed, otypes=[np.int64])(np.asarray(seeds, np.int64))
+    folded, sweeps = np.broadcast_arrays(folded, np.asarray(sweeps, np.int64))
+    keys = np.stack([folded, (sweeps + 2**31) % 2**32 - 2**31], axis=-1)
+    return torch.from_numpy(keys.astype(np.int32))
+
+
 def _mulhilo(m: int, a: torch.Tensor):
     """(hi, lo) 32-bit halves of m * a for a uint32 held in int64.
 
@@ -72,11 +90,12 @@ def _mulhilo(m: int, a: torch.Tensor):
     return hi, lo
 
 
-def philox4x32(counter, key0: int, key1: int):
+def philox4x32(counter, key0, key1):
     """Philox4x32-10 on int64 tensors holding uint32 values.
 
-    ``counter`` is four broadcast-compatible tensors; returns the four output
-    words as int64 tensors in [0, 2^32).
+    ``counter`` is four broadcast-compatible tensors and each key an int or
+    an int64 tensor that broadcasts with them; returns the four output words
+    as int64 tensors in [0, 2^32).
     """
     x0, x1, x2, x3 = counter
     k0, k1 = key0 & MASK32, key1 & MASK32
@@ -89,13 +108,17 @@ def philox4x32(counter, key0: int, key1: int):
     return x0, x1, x2, x3
 
 
-def philox_words(key0: int, key1: int, R: int, C2: int,
-                 device=None) -> torch.Tensor:
+def philox_words(key0, key1, R: int, C2: int, device=None) -> torch.Tensor:
     """(R, C2) int64 words in [0, 2^32): site (r, c) gets output c % 4 of
-    Philox4x32-10 at counter (r, c // 4, 0, 0) under key (key0, key1)."""
+    Philox4x32-10 at counter (r, c // 4, 0, 0) under key (key0, key1).
+
+    Keys are ints, or int64 tensors of shape (B, 1, 1) holding uint32 values
+    for a batch of B keys, which gives (B, R, C2) words.
+    """
     Q = -(-C2 // 4)
     rows = torch.arange(R, dtype=torch.int64, device=device)[:, None]
     quads = torch.arange(Q, dtype=torch.int64, device=device)[None, :]
     zero = torch.zeros((R, Q), dtype=torch.int64, device=device)
-    words = philox4x32((rows + zero, quads + zero, zero, zero), key0, key1)
-    return torch.stack(words, dim=-1).reshape(R, 4 * Q)[:, :C2]
+    words = torch.broadcast_tensors(
+        *philox4x32((rows + zero, quads + zero, zero, zero), key0, key1))
+    return torch.stack(words, dim=-1).flatten(-2)[..., :C2]
