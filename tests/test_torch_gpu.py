@@ -1,6 +1,7 @@
-"""The CUDA fused-sweep kernels (one lattice, and a batch of lattices)
-against their plain PyTorch versions, and the batched paths on the card
-against the same paths on the CPU.
+"""The CUDA kernels (the fused sweep of one lattice and of a batch of
+lattices, the bond half-sweep of one lattice and of a batch of replicas)
+against their plain PyTorch versions, and the batched and spin-glass paths
+on the card against the same paths on the CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
 Hopper card and nvcc, run ``python -m pytest -m gpu tests/test_torch_gpu.py``;
@@ -21,8 +22,24 @@ from tsu_tpu_torch.ops.checkerboard_fused import (
     fused_sweep_reference,
     sigmoid_table16,
 )
+from tsu_tpu_torch.ops.checkerboard_bonds import color_bond_weights, pack_bond_codes
+from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
+    bond_halfsweep,
+    bond_halfsweep_batched,
+    bond_halfsweep_batched_reference,
+    bond_halfsweep_reference,
+    bond_sweep_keys,
+    continuous_band,
+)
+from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
 from tsu_tpu_torch.rng import sweep_keys
-from tsu_tpu_torch.samplers import anneal_lattice, parallel_tempering_lattice
+from tsu_tpu_torch.samplers import (
+    anneal_lattice,
+    anneal_spin_glass,
+    parallel_tempering_bonds,
+    parallel_tempering_lattice,
+    pt_ground_state_search,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -170,5 +187,154 @@ def test_batched_paths_on_cuda_equal_those_on_cpu(cuda):
                 torch.from_numpy(info["final_states"]), torch.from_numpy(info["pair_attempts"])]
 
     for path in (ensemble, anneal, tempering):
+        for a, b in zip(path(cuda), path(torch.device("cpu"))):
+            assert torch.equal(a, b), path.__name__
+
+
+def _bond_weights(seed, R, C, mode, periodic, device):
+    """Colour weights for a mode: "codes" (±1 bonds with zeros, packed),
+    "f32" or "bf16" (Gaussian bonds and field)."""
+    rng = np.random.default_rng(seed)
+    if mode == "codes":
+        Jh, Jv = rng.choice([-1.0, 0.0, 1.0], (2, R, C))
+        w = color_bond_weights(torch.as_tensor(Jh, dtype=torch.float32, device=device),
+                               torch.as_tensor(Jv, dtype=torch.float32, device=device),
+                               0.0, periodic)
+        return pack_bond_codes(w)
+    Jh, Jv, f = rng.normal(size=(3, R, C))
+    w = color_bond_weights(*(torch.as_tensor(x, dtype=torch.float32, device=device)
+                             for x in (Jh, Jv, 0.3 * f)), periodic)
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    return {c: tuple(x.to(dt) for x in ws) for c, ws in w.items()}
+
+
+def _assert_bond_equal(got, want, band):
+    """Bit for bit, except (continuous mode) inside the stated band."""
+    differ = got != want
+    if band is not None:
+        differ &= ~band
+    assert not bool(differ.any()), int(differ.sum())
+
+
+@pytest.mark.parametrize("shape,dtype,periodic,mode", [
+    ((64, 64), torch.bfloat16, True, "codes"),
+    ((18, 20), torch.float32, False, "codes"),     # R % 8 != 0
+    ((34, 522), torch.bfloat16, False, "f32"),     # C/2 odd and wider than one block
+    ((64, 64), torch.float32, True, "bf16"),
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_bond_kernel_matches_plain_version(cuda, shape, dtype, periodic, mode, injected):
+    """K4 half-sweep by half-sweep from one shared input, both colours, three
+    temperatures: discrete bit for bit, continuous outside CONTINUOUS_BAND."""
+    R, C = shape
+    w = _bond_weights(1, R, C, mode, periodic, cuda)
+    other = _black(2, R, C, dtype, cuda)
+    rng = np.random.default_rng(3)
+    for k, T in enumerate([0.7, 1.5, 3.0]):
+        for color in (0, 1):
+            U = None
+            if injected:
+                U = torch.as_tensor(rng.integers(0, 1 << 24, (R, C // 2)), dtype=torch.int32,
+                                    device=cuda)
+            kw = dict(update_red=color == 0, key=(11 + color, k), periodic=periodic, uniforms=U)
+            if mode == "codes":
+                kw["table"] = sigmoid_table(1.0, 0.0, T).to(cuda)
+            else:
+                kw["temperature"] = T
+            wc = w["red" if color == 0 else "black"]
+            got = bond_halfsweep(other, wc, **kw)
+            want = bond_halfsweep_reference(other, wc, **kw)
+            band = None
+            if mode != "codes":
+                band = continuous_band(other, wc, update_red=color == 0, temperature=T,
+                                       key=kw["key"], periodic=periodic, uniforms=U)
+            _assert_bond_equal(got, want, band)
+            other = got
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape,dtype,periodic,mode", [
+    ((3, 64, 64), torch.bfloat16, True, "codes"),
+    ((2, 18, 20), torch.float32, False, "f32"),
+    ((2, 34, 522), torch.bfloat16, False, "codes"),
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_batched_bond_kernel_matches_plain_version(cuda, shape, dtype, periodic, mode, injected):
+    B, R, C = shape
+    w = _bond_weights(4, R, C, mode, periodic, cuda)
+    others = _blacks(5, B, R, C, dtype, cuda)
+    temps = torch.linspace(0.5, 3.0, B, device=cuda)
+    mode_kw = ({"tables": sigmoid_table(1.0, 0.0, temps.cpu()).to(cuda)} if mode == "codes"
+               else {"temperatures": temps})
+    keys = bond_sweep_keys(np.arange(B) + 7, 2).to(cuda)
+    rng = np.random.default_rng(6)
+    for k in range(2):
+        for color in (0, 1):
+            U = None
+            if injected:
+                U = torch.as_tensor(rng.integers(0, 1 << 24, (B, R, C // 2)),
+                                    dtype=torch.int32, device=cuda)
+            wc = w["red" if color == 0 else "black"]
+            kw = dict(update_red=color == 0, periodic=periodic, uniforms=U, **mode_kw)
+            got = bond_halfsweep_batched(others, wc, keys[k, color], **kw)
+            want = bond_halfsweep_batched_reference(others, wc, keys[k, color], **kw)
+            band = None
+            if mode != "codes":
+                band = continuous_band(others, wc, update_red=color == 0, temperature=temps,
+                                       key=keys[k, color], periodic=periodic, uniforms=U)
+            _assert_bond_equal(got, want, band)
+            others = got
+    torch.cuda.synchronize()
+
+
+def test_batched_bond_kernel_element_equals_single_lattice_kernel(cuda):
+    B = 4
+    w = _bond_weights(8, 32, 40, "codes", True, cuda)["red"]
+    others = _blacks(9, B, 32, 40, torch.bfloat16, cuda)
+    tables = sigmoid_table(1.0, 0.0, torch.tensor([0.5, 1.0, 1.5, 2.0])).to(cuda)
+    keys = bond_sweep_keys([3, 5, 7, 9], 3)[2, 0].to(cuda)
+    before = bond_halfsweep_batched.launches, bond_halfsweep.launches
+    outs = bond_halfsweep_batched(others, w, keys, update_red=True, tables=tables)
+    for b in range(B):
+        key = tuple(int(x) & 0xFFFFFFFF for x in keys[b])
+        one = bond_halfsweep(others[b], w, update_red=True, key=key, table=tables[b])
+        assert torch.equal(one, outs[b]), b
+    assert (bond_halfsweep_batched.launches, bond_halfsweep.launches) == (
+        before[0] + 1, before[1] + B)
+
+
+def test_bond_kernel_rejects_operands_off_the_device(cuda):
+    w = _bond_weights(10, 16, 16, "codes", True, cuda)["red"]
+    other = _black(11, 16, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        bond_halfsweep(other, w, update_red=True, table=sigmoid_table(1.0, 0.0, 2.0))
+
+
+def test_spin_glass_paths_on_cuda_equal_those_on_cpu(cuda):
+    """The discrete spin-glass paths give the same output on both devices
+    for one seed (kernel == plain version bit for bit, host randomness from a
+    CPU generator)."""
+    rng = np.random.default_rng(12)
+    Jh, Jv = rng.choice([-1.0, 1.0], (2, 16, 16)).astype(np.float32)
+
+    def anneal(device):
+        state, e = anneal_spin_glass(1, Jh, Jv, n_steps=60, n_restarts=2, device=device)
+        return [torch.from_numpy(state), torch.tensor(e)]
+
+    def tempering(device):
+        cold, info = parallel_tempering_bonds(2, Jh, Jv, temperatures=[0.8, 1.2, 1.8],
+                                              n_samples=6, swap_interval=2, n_burnin=4,
+                                              device=device)
+        return [cold.cpu(), torch.from_numpy(info["energies"]),
+                torch.from_numpy(info["final_states"])]
+
+    def search(device):
+        out = pt_ground_state_search(3, Jh, Jv, temperatures=[0.5, 0.9, 1.5], n_iters=20,
+                                     n_copies=2, houdayer_every=5, quench_sweeps=4,
+                                     device=device)
+        return [torch.from_numpy(out["best_state"]), torch.tensor(out["best_energy"]),
+                torch.from_numpy(out["pair_attempts"])]
+
+    for path in (anneal, tempering, search):
         for a, b in zip(path(cuda), path(torch.device("cpu"))):
             assert torch.equal(a, b), path.__name__

@@ -155,15 +155,20 @@ def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
     code = (
         "import json, sys\n"
         "import torch\n"
-        "import tsu_tpu_torch, tsu_tpu_torch.samplers\n"
+        "import tsu_tpu_torch, tsu_tpu_torch.samplers, tsu_tpu_torch.interop\n"
         "from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble\n"
         "from tsu_tpu_torch.ops import _build\n"
         "tsu_tpu_torch.IsingGrid((4, 4), seed=0).sample(n_samples=2)\n"
         "sample_grid_ensemble(torch.Generator().manual_seed(0), torch.ones(3, 4, 4),\n"
         "                     [1.5, 2.5, 3.5], n_samples=2, n_burnin=2)\n"
+        "J = torch.ones(4, 4)\n"
+        "tsu_tpu_torch.IsingGrid((4, 4), seed=0, bonds=(J, -J)).sample(n_samples=2)\n"
+        "tsu_tpu_torch.parallel_tempering_bonds(0, J, -J, temperatures=[1.0, 2.0],\n"
+        "                                       n_samples=2, n_burnin=2)\n"
         "print(json.dumps({'jax': 'jax' in sys.modules,\n"
         "                  'triton': 'triton' in sys.modules,\n"
-        "                  'built': _build.fused_sweep_library.cache_info().currsize}))\n"
+        "                  'built': _build.fused_sweep_library.cache_info().currsize\n"
+        "                  + _build.bond_sweep_library.cache_info().currsize}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
@@ -187,8 +192,9 @@ def test_default_device_is_torch_default():
 
 @pytest.mark.parametrize("call", [
     lambda: IsingGrid((5, 4)),
-    lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4)))),
-    lambda: IsingGrid((4, 4)).set_bonds(np.ones((4, 4)), np.ones((4, 4))),
+    lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4)))).set_coupling(0, 5, 1.0),
+    lambda: tsu_tpu_torch.anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)),
+                                            checkpoint_path="ck"),
     lambda: IsingGrid((4, 4)).set_coupling(0, 5, 1.0),
     lambda: demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1),
     lambda: IsingGrid((4, 4)).sample_observables(mesh=object()),

@@ -42,9 +42,7 @@
 // kernel (16 x 1024^2 is the same work) has the same bound. Plane offsets are
 // size_t: B * R * C2 passes 2^31 at 256 lattices of 4096^2.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "tsu_common.cuh"
 
 namespace {
 
@@ -57,26 +55,6 @@ constexpr int SR_R = TR + 2;   // new red rows: r0-1 .. r0+TR
 constexpr int SR_C = TC + 2;   // new red cols: c0-1 .. c0+TC
 constexpr int NG = TC / 4 + 2; // red work items per row: col c0-1, TC/4 quads, col c0+TC
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 x, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, x.x), lo0 = 0xD2511F53u * x.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, x.z), lo1 = 0xCD9E8D57u * x.z;
-    x = make_uint4(hi1 ^ x.y ^ k0, lo1, hi0 ^ x.w ^ k1, lo0);
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return x;
-}
-
-__device__ __forceinline__ uint32_t pick(const uint4& w, int i) {
-  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-__device__ __forceinline__ uint32_t site_word(int r, int c, uint32_t k0, uint32_t k1) {
-  return pick(philox4x32_10(make_uint4((uint32_t)r, (uint32_t)(c >> 2), 0u, 0u), k0, k1), c & 3);
-}
-
 // Global index i on an axis of length n: wrapped when periodic, -1 when it
 // falls outside an open lattice.
 __device__ __forceinline__ int wrap_or_out(int i, int n, int periodic) {
@@ -84,15 +62,6 @@ __device__ __forceinline__ int wrap_or_out(int i, int n, int periodic) {
   if (!periodic) return -1;
   i %= n;
   return i < 0 ? i + n : i;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 // One sweep of the tile (blockIdx.y, blockIdx.x) of one lattice.

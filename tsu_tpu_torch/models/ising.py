@@ -1,11 +1,14 @@
-"""2-D nearest-neighbour Ising grid with uniform coupling, on the fused sweep,
-and the phase-transition scan.
+"""2-D nearest-neighbour Ising grid, uniform or with per-bond couplings, and
+the phase-transition scan.
 
-Counterpart of ``tsu_tpu/models/ising.py:IsingGrid`` for even grids with a
-uniform coupling, and of ``demonstrate_phase_transition``. Observables match
-the JAX package: M = <sum s>/N, C = Var(E)/(T^2 N), chi = Var(m_per_spin) *
-N / T. Features of the JAX class that later slices of the port bring raise
-``NotImplementedError`` naming the slice (see ROADMAP.md).
+Counterpart of ``tsu_tpu/models/ising.py:IsingGrid`` for even grids, and of
+``demonstrate_phase_transition``. A uniform grid samples on the fused sweep;
+a grid with bond planes (Jh, Jv), a random-bond lattice or a ±J spin glass,
+samples on the bond half-sweep kernel and finds ground states with
+``anneal_spin_glass``. Observables match the JAX package: M = <sum s>/N,
+C = Var(E)/(T^2 N), chi = Var(m_per_spin) * N / T. Features of the JAX class
+that later slices of the port bring raise ``NotImplementedError`` naming the
+slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ from tsu_tpu_torch.models.lattice_sampler import (
     sample_chain,
     sample_grid,
     sample_grid_ensemble,
+    sample_lattice_bonds,
 )
 from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch
+from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds
 from tsu_tpu_torch.rng import as_generator
-from tsu_tpu_torch.samplers.annealing import anneal_lattice
+from tsu_tpu_torch.samplers.annealing import anneal_lattice, anneal_spin_glass
 
 
 def _not_ported(what: str, slice_: str):
@@ -32,8 +37,12 @@ def _not_ported(what: str, slice_: str):
 
 
 class IsingGrid:
-    """2-D nearest-neighbour grid with uniform coupling, sampled by the fused
-    checkerboard sweep on ``device`` (default ``torch.get_default_device()``).
+    """2-D nearest-neighbour grid on ``device`` (default
+    ``torch.get_default_device()``): uniform coupling, sampled by the fused
+    checkerboard sweep, or per-bond couplings ``bonds=(Jh, Jv)``, sampled by
+    the bond half-sweep kernel. ``Jh[r, c]`` couples (r, c)-(r, c+1) and
+    ``Jv[r, c]`` couples (r, c)-(r+1, c); the wrap entries count only when
+    periodic.
 
     Sampling returns numpy arrays of flat states, (n_samples, rows*cols),
     as the JAX package does.
@@ -54,8 +63,6 @@ class IsingGrid:
             raise ConfigurationError(f"grid shape must be positive, got {shape}")
         if rows % 2 or cols % 2:
             raise _not_ported("an odd-sized grid (dense path)", "slice 4")
-        if bonds is not None:
-            raise _not_ported("per-bond couplings", "slice 3")
         self.shape = (rows, cols)
         self.periodic = periodic
         self.coupling_strength = coupling_strength
@@ -63,16 +70,59 @@ class IsingGrid:
         self.config = config or IsingConfig(coupling_strength=coupling_strength)
         self.device = resolve_device(device)
         self._gen = as_generator(seed)
+        # Per-bond couplings: (Jh, Jv) float32 numpy planes, or None for the
+        # uniform coupling_strength.
+        self._Jh: Optional[np.ndarray] = None
+        self._Jv: Optional[np.ndarray] = None
+        if bonds is not None:
+            self.set_bonds(*bonds)
 
-    # -- features of later slices -------------------------------------------
+    # -- bonds ----------------------------------------------------------------
 
     def set_bonds(self, Jh, Jv):
-        raise _not_ported("per-bond couplings", "slice 3")
+        """Set all horizontal and vertical bonds at once; each plane has the
+        grid's shape."""
+        Jh = np.asarray(Jh, dtype=np.float32)
+        Jv = np.asarray(Jv, dtype=np.float32)
+        if Jh.shape != self.shape or Jv.shape != self.shape:
+            raise ConfigurationError(
+                f"bond planes must have shape {self.shape}; got {Jh.shape} / {Jv.shape}")
+        self._Jh, self._Jv = Jh.copy(), Jv.copy()
+
+    def _bond_planes(self):
+        """Current (Jh, Jv), made uniform planes on the first edit."""
+        if self._Jh is None:
+            self._Jh = np.full(self.shape, self.coupling_strength, np.float32)
+            self._Jv = np.full(self.shape, self.coupling_strength, np.float32)
+        return self._Jh, self._Jv
+
+    def _neighbor_bond(self, i: int, j: int):
+        """(plane, r, c) of the bond between flat sites i and j, or None when
+        they are not lattice neighbours."""
+        rows, cols = self.shape
+        ri, ci = divmod(i, cols)
+        rj, cj = divmod(j, cols)
+        if ri == rj:
+            dc = (cj - ci) % cols
+            if dc == 1 or (self.periodic and dc == cols - 1):
+                return ("h", ri, ci if dc == 1 else cj)
+        if ci == cj:
+            dr = (rj - ri) % rows
+            if dr == 1 or (self.periodic and dr == rows - 1):
+                return ("v", ri if dr == 1 else rj, ci)
+        return None
 
     def set_coupling(self, i: int, j: int, strength: float):
-        raise _not_ported(
-            "set_coupling (bond planes for lattice neighbours, a dense J "
-            "otherwise)", "slices 3 and 4")
+        """Set the coupling of lattice neighbours i and j in the bond planes.
+        Other pairs need a dense J (slice 4) and raise."""
+        loc = self._neighbor_bond(i, j)
+        if loc is None:
+            raise _not_ported(
+                f"set_coupling of sites {i} and {j}, which are not lattice neighbours "
+                "(a dense J)", "slice 4")
+        Jh, Jv = self._bond_planes()
+        kind, r, c = loc
+        (Jh if kind == "h" else Jv)[r, c] = strength
 
     # -- energetics / sampling -----------------------------------------------
 
@@ -86,9 +136,13 @@ class IsingGrid:
 
     def energies(self, samples: np.ndarray) -> np.ndarray:
         """Energies (float64) of a batch of flat or (rows, cols) states."""
-        return lattice_energy_batch(
-            self._lattice(samples), J=self.coupling_strength, field=0.0,
-            periodic=self.periodic).cpu().numpy()
+        if self._Jh is not None:
+            e = lattice_energy_bonds(self._lattice(samples), self._Jh, self._Jv, 0.0,
+                                     periodic=self.periodic)
+        else:
+            e = lattice_energy_batch(self._lattice(samples), J=self.coupling_strength,
+                                     field=0.0, periodic=self.periodic)
+        return e.cpu().numpy()
 
     def _initial_lattice(self, initial_state) -> torch.Tensor:
         if initial_state is not None:
@@ -103,13 +157,22 @@ class IsingGrid:
             J=self.coupling_strength, n_burnin=self.config.n_burnin,
             n_sweeps=self.config.n_sweeps, periodic=self.periodic)
 
+    def _bond_chain_args(self, n_samples: int, temperature: Optional[float]) -> dict:
+        args = self._chain_args(n_samples, temperature)
+        del args["J"]
+        return args
+
     def sample(self, n_samples: int = 100,
                initial_state: Optional[np.ndarray] = None,
                temperature: Optional[float] = None) -> np.ndarray:
         """Sample spin configurations; returns (n_samples, rows*cols) flat
         float32 spins."""
-        states = sample_grid(self._gen, self._initial_lattice(initial_state),
-                             **self._chain_args(n_samples, temperature))
+        lattice0 = self._initial_lattice(initial_state)
+        if self._Jh is not None:
+            states = sample_lattice_bonds(self._gen, lattice0, self._Jh, self._Jv,
+                                          **self._bond_chain_args(n_samples, temperature))
+        else:
+            states = sample_grid(self._gen, lattice0, **self._chain_args(n_samples, temperature))
         return states.reshape(n_samples, -1).cpu().numpy()
 
     def sample_observables(self, n_samples: int = 100,
@@ -119,6 +182,11 @@ class IsingGrid:
         returning states; the lattice stays on the device."""
         if mesh is not None:
             raise _not_ported("sample_observables over a device mesh", "slice 6")
+        if self._Jh is not None:
+            out = sample_lattice_bonds(self._gen, self._initial_lattice(None), self._Jh,
+                                       self._Jv, collect="observables",
+                                       **self._bond_chain_args(n_samples, temperature))
+            return {k: v.cpu().numpy() for k, v in out.items()}
         ms, es = [], []
         for lattice in sample_chain(self._gen, self._initial_lattice(None),
                                     **self._chain_args(n_samples, temperature)):
@@ -129,8 +197,15 @@ class IsingGrid:
                 "energy": torch.stack(es).cpu().numpy()}
 
     def find_ground_state(self, n_steps: int = 1000) -> Tuple[np.ndarray, float]:
-        """Anneal two chains from T = 5.0 to 0.05 over n_steps sweeps;
-        returns the best flat state (rows*cols float32) and its energy."""
+        """Anneal from T = 5.0 to 0.05 over n_steps sweeps; returns the best
+        flat state (rows*cols float32) and its energy. A uniform grid anneals
+        two chains (``anneal_lattice``), a grid with bonds one
+        (``anneal_spin_glass``)."""
+        if self._Jh is not None:
+            best, e = anneal_spin_glass(self._gen, self._Jh, self._Jv, T_initial=5.0,
+                                        T_final=0.05, n_steps=n_steps, periodic=self.periodic,
+                                        device=self.device)
+            return best.reshape(-1), e
         best, e = anneal_lattice(
             self._gen, self.shape, J=self.coupling_strength, T_initial=5.0,
             T_final=0.05, n_steps=n_steps, n_chains=2, periodic=self.periodic,

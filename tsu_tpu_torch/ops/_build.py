@@ -35,9 +35,10 @@ def _nvcc() -> str:
 
 def library_path(name: str, sources: tuple[str, ...]) -> Path:
     """Build ``sources`` (file names under csrc/) into a shared library,
-    unless a build of the same sources and flags exists; return its path."""
+    unless a build of the same sources, headers and flags exists; return its
+    path."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(p.name for p in _CSRC.glob("*.cuh"))):
         digest.update((_CSRC / src).read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -70,4 +71,19 @@ def fused_sweep_library() -> ctypes.CDLL:
     lib.tsu_fused_sweep.restype = i
     lib.tsu_fused_sweep_batched.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tsu_fused_sweep_batched.restype = i
+    return lib
+
+
+@functools.cache
+def bond_sweep_library() -> ctypes.CDLL:
+    """The bond half-sweep kernel library (the single-lattice and the
+    batched kernel), built and loaded once per process."""
+    lib = ctypes.CDLL(str(library_path("checkerboard_bonds",
+                                       ("checkerboard_bonds.cu",))))
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.tsu_bond_halfsweep.argtypes = [p, p, p, p, p, p, p, i, i, f, p, p, i, i, i, i, u, u, p]
+    lib.tsu_bond_halfsweep.restype = i
+    lib.tsu_bond_halfsweep_batched.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p,
+                                               i, i, i, i, i, p]
+    lib.tsu_bond_halfsweep_batched.restype = i
     return lib

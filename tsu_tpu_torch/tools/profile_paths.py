@@ -1,16 +1,17 @@
-"""Profile the port's lattice paths on one NVIDIA GPU with torch.profiler.
+"""Profile the port's lattice and spin-glass paths on one NVIDIA GPU with
+torch.profiler.
 
 Run from the repository root on a machine with a card:
 
     python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR]
 
-Each path runs at the size ``chip_smoke.py`` drives it, once to warm up and
-once under the profiler. For each path it prints the wall time, the device
-busy time and idle share, the count and device time of the port's kernels,
-the host's kernel launches and their host time, and the operations with the
-most device time. Busy time sums only the events whose ``device_type`` is
-CUDA: ``key_averages()`` lists a kernel's time a second time under the CPU
-operation that launched it. Then it times the host path of one batched
+Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9 and
+13), once to warm up and once under the profiler. For each path it prints
+the wall time, the device busy time and idle share, the count and device
+time of the port's kernels, the host's kernel launches and their host time,
+and the operations with the most device time. Busy time sums only the
+events whose ``device_type`` is CUDA: ``key_averages()`` lists a kernel's
+time a second time under the CPU operation that launched it. Then it times the host path of one batched
 launch: wrapper calls on one 2x2 lattice, whose kernel the card finishes at
 once, on the host clock. ``--out DIR`` writes the profiler's tables to
 DIR/profile_paths.txt. The last line is one JSON object with every number
@@ -32,16 +33,37 @@ import torch
 from tsu_tpu_torch import IsingGrid, demonstrate_phase_transition
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps_keyed, sigmoid_table16
 from tsu_tpu_torch.rng import sweep_keys
-from tsu_tpu_torch.samplers import parallel_tempering_lattice
+from tsu_tpu_torch.samplers import (
+    build_tempering_ladder,
+    parallel_tempering_bonds,
+    parallel_tempering_lattice,
+    pt_ground_state_search,
+)
 
 GRID = (4096, 4096)        # the README quick start and the ground-state search
 SCAN = (16, 1024)          # the phase scan: 16 temperatures x 1024^2
 PT = (64, 256, 256)        # tempering: 64 rungs x 256^2
 TOP = 8                    # device operations listed per path
+KERNEL_NAMES = ("fused_sweep", "bond_halfsweep")
+
+
+def _ladder_search(Jh, Jv, dev):
+    """The spin_glass_ea row at reduced depth: a ladder over T 0.3-2.0,
+    then 500 iterations of 2 copies with Houdayer moves."""
+    gen = torch.Generator().manual_seed(1)
+    temps, _ = build_tempering_ladder(gen, Jh, Jv, T_min=0.3, T_max=2.0, target_acceptance=0.3,
+                                      accept_floor=0.2, feedback_iters=128, feedback_burnin=32,
+                                      device=dev)
+    return pt_ground_state_search(gen, Jh, Jv, temperatures=temps, n_iters=500, n_copies=2,
+                                  houdayer_every=10, quench_sweeps=64, device=dev)
 
 
 def paths(dev) -> dict:
     B, L = SCAN
+    rng = np.random.default_rng(0)
+    gauss = rng.normal(size=(2, *GRID)).astype(np.float32)
+    pm1 = rng.choice([-1.0, 1.0], (2, *GRID)).astype(np.float32)
+    pm1_pt = rng.choice([-1.0, 1.0], (2, *PT[1:])).astype(np.float32)
     return {
         "sample": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev).sample(
             n_samples=4, temperature=2.269),
@@ -53,6 +75,14 @@ def paths(dev) -> dict:
         "tempering": lambda: parallel_tempering_lattice(
             0, PT[1:], temperatures=np.geomspace(1.8, 3.0, PT[0]), n_samples=200,
             swap_interval=10, n_burnin=100, device=dev),
+        "spin-glass sample": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev,
+                                               bonds=gauss).sample_observables(4, temperature=1.0),
+        "spin-glass anneal": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev,
+                                               bonds=pm1).find_ground_state(n_steps=3000),
+        "bond tempering": lambda: parallel_tempering_bonds(
+            0, *pm1_pt, temperatures=np.geomspace(1.2, 2.0, PT[0]), n_samples=200,
+            swap_interval=10, n_burnin=100, device=dev),
+        "ladder + search": lambda: _ladder_search(*pm1_pt, dev),
     }
 
 
@@ -78,7 +108,7 @@ def profile_path(fn, tables: list) -> dict:
         "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels": {e.key: {"count": e.count, "ms": e.self_device_time_total / 1e3}
-                    for e in device if "fused_sweep" in e.key},
+                    for e in device if any(k in e.key for k in KERNEL_NAMES)},
         "host_launches": sum(e.count for e in launch),
         "host_launch_ms": sum(e.cpu_time_total for e in launch) / 1e3,
         "top_device_ops": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
