@@ -55,17 +55,35 @@ Phases, each of which raises on failure:
 14. bond kernel and plain times per half-sweep: K4 discrete at 4096^2 bf16,
     K4 continuous at 4096^2 f32, K5 discrete at 284 x 256^2 bf16; the
     kernel's time from a CUDA graph of 1000 launches (the JSON line's
-    "ms") and launched one by one.
+    "ms") and launched one by one;
+15. the resident kernel (K6 at one table, K7 over a schedule, each one
+    launch per call) against its plain version, bit for bit: injected
+    uniforms over 3 sweeps at 4096^2 bf16 periodic and at 1002x1000 f32
+    open, Philox mode over 2 sweeps at 4096^2 bf16; each decomposition
+    variant of K1 (K8: prng_only, prng_grouped, nomath) against its plain
+    version at 4096^2 bf16, injected and Philox;
+16. resident statistics: 4x4 through K6 against exact enumeration, 512^2
+    at T = 2.0 through K6 against Onsager's magnetization, K7's 64^2
+    anneal below -1.85 per site, and kernel_bench's --check moments of K6
+    against K1 at 128^2;
+17. this slice's paths at full width, each from zeroed counts: the tools
+    kernel_bench (all rows, 4096^2 bf16, 500 sweeps a call), bench (the
+    headline K1 row and the EA K4 row) and kernel_decomposition (4096^2
+    bf16, 500 sweeps), and resident_anneal at 4096^2 bf16 over a 1000-sweep
+    schedule from T = 5 to 0.05, with launch counts (one K6 launch per
+    resident_sweeps call, one K7 launch per anneal);
+18. K6 and K7 ms per sweep at 4096^2 bf16 (a 500-sweep call / 500) beside
+    K1's and the plain versions', and each K8 variant's ms per sweep.
 
-The last two lines are a JSON line per kernel and the result line
-{"ok": true, "device": {...}}. Without CUDA the script exits non-zero before
-printing either.
+The last two lines are a JSON line per kernel (its time, launches, error,
+plain version's time and its bound: the bytes it must move over 3.35 TB/s)
+and the result line {"ok": true, "device": {...}}. Without CUDA the script
+exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -79,6 +97,7 @@ from tsu_tpu_torch.ops import _build
 from tsu_tpu_torch.ops.checkerboard import (
     lattice_energy_batch,
     merge_checkerboard,
+    plane_energy_batch,
     split_checkerboard,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import (
@@ -102,6 +121,20 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
     continuous_band,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
+from tsu_tpu_torch.ops.checkerboard_resident import (
+    resident_anneal,
+    resident_anneal_tables,
+    resident_anneal_tables_reference,
+    resident_grid_blocks,
+    resident_sweeps,
+    resident_sweeps_table,
+    resident_sweeps_table_reference,
+)
+from tsu_tpu_torch.ops.kernel_decomposition import (
+    MODES,
+    decomposition_sweep,
+    decomposition_sweep_reference,
+)
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.samplers import (
     build_tempering_ladder,
@@ -110,6 +143,9 @@ from tsu_tpu_torch.samplers import (
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
+from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition
+from tsu_tpu_torch.tools.timing import card, graph_ms
+from tsu_tpu_torch.tools.timing import event_ms as time_sweeps
 
 MAIN_SHAPE = (4096, 4096)
 SCHEDULE = [2.269, 4.0, 0.5]
@@ -118,19 +154,18 @@ SCAN_TEMPS = np.linspace(1.5, 3.5, ENSEMBLE[0])
 PT_SHAPE, PT_RUNGS = (256, 256), 64
 LADDER_BATCH = 284                       # spin_glass_ea's ladder: 142 rungs x 2 copies
 EA_GS_DENSITY = -1.4015                  # 2-D +-J EA ground-state energy per site
+RESIDENT_SWEEPS = 500                    # sweeps per timed resident call (kernel_bench's depth)
+BENCH = dict(sweeps=5000, ea_sweeps=1000, calls=3, n_trials=3)   # tools.bench's defaults
+HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory rate
 
 
 def log(msg: str):
     print(msg, flush=True)
 
 
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.splitlines()[0].strip()
-
-
-KERNELS = (fused_sweep, fused_sweep_batched, bond_halfsweep, bond_halfsweep_batched)
+KERNELS = (fused_sweep, fused_sweep_batched, bond_halfsweep, bond_halfsweep_batched,
+           resident_sweeps_table, resident_anneal_tables, decomposition_sweep)
+NAMES = ("K1", "K2", "K4", "K5", "K6", "K7", "K8")
 
 
 def reset_counts():
@@ -139,8 +174,18 @@ def reset_counts():
 
 
 def counts():
-    """Launches of K1, K2, K4 and K5 since the last reset."""
+    """Launches of K1, K2, K4, K5, K6, K7 and K8 since the last reset."""
     return tuple(k.launches for k in KERNELS)
+
+
+def expect(*leading) -> tuple:
+    """A launch-count tuple: ``leading`` for K1, K2, ..., the rest zero."""
+    return tuple(leading) + (0,) * (len(KERNELS) - len(leading))
+
+
+def bound_ms(n_bytes: float) -> float:
+    """The least time the card could take to move n_bytes of device memory."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def random_black(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
@@ -228,15 +273,16 @@ def phase_main_path(dev):
     grid = IsingGrid(MAIN_SHAPE, periodic=True, seed=0, device=dev)
     states = grid.sample(n_samples=n_samples, temperature=2.269)
     wall = time.perf_counter() - t0
-    launches, batched, *bonds = counts()
+    got = counts()
+    launches = got[0]
     sweeps = cfg.n_burnin + n_samples * cfg.n_sweeps
     n = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     log(f"main path: IsingGrid({MAIN_SHAPE}).sample(4) {wall:.3f} s wall, "
         f"{launches} launches for {sweeps} sweeps, "
         f"{sweeps * n / wall:.4e} flips/s end to end (init and copy-out included)")
-    if (launches, batched, *bonds) != (sweeps, 0, 0, 0):
+    if got != expect(sweeps):
         raise AssertionError(f"expected {sweeps} kernel launches and 0 of the others, counted "
-                             f"{(launches, batched, *bonds)}")
+                             f"{got}")
     if states.shape != (n_samples, n) or not np.all(np.abs(states) == 1.0):
         raise AssertionError(f"bad states: shape {states.shape}")
     e = grid.energies(states) / n
@@ -374,8 +420,8 @@ def phase_batched_statistics(dev):
 
 def run_path(what, fn, want):
     """Run one path from zeroed counts; raise unless the launches of
-    (K1, K2, K4, K5) are ``want`` (a function of the output, or a tuple).
-    Returns (output, counts)."""
+    (K1, K2, K4, K5, K6, K7, K8) are ``want`` (a function of the output, or
+    a tuple of the leading counts, the rest zero). Returns (output, counts)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -383,9 +429,9 @@ def run_path(what, fn, want):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = want(out) if callable(want) else want
-    log(f"path {what}: {wall:.3f} s wall, launches K1 {got[0]}, K2 {got[1]}, K4 {got[2]}, "
-        f"K5 {got[3]}")
+    want = expect(*(want(out) if callable(want) else want))
+    log(f"path {what}: {wall:.3f} s wall, launches " +
+        ", ".join(f"{k} {n}" for k, n in zip(NAMES, got)))
     if got != want:
         raise AssertionError(f"{what}: expected launches {want}, counted {got}")
     return out, got
@@ -481,15 +527,6 @@ def phase_timing_batched(dev, name):
         f"({n / ms * 1e3:.4e} flips/s, 1000 sweeps), plain {plain_ms:.6f} ms/sweep "
         f"({n / plain_ms * 1e3:.4e} flips/s, 20 sweeps)")
     return ms, plain_ms
-
-
-def time_sweeps(fn, n: int) -> float:
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn(n)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def phase_timing(dev, name):
@@ -819,23 +856,6 @@ def phase_bond_paths(dev):
     return c1[2] + c2[2], c3[3] + c4[3]
 
 
-def graph_ms(fn, n: int) -> float:
-    """Device ms per call of fn(n)'s n kernel calls, captured in one CUDA
-    graph and replayed. The launches then run back to back: a bond
-    half-sweep at these sizes takes less device time than the host's launch
-    path (~35-50 us a call), so timing eager launches would time the host."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(2)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn(n)
-    graph.replay()
-    return time_sweeps(lambda _: graph.replay(), n)
-
-
 def chain_ms(halfsweep, other, weights, n, timer=time_sweeps, **mode):
     """ms per half-sweep of n chained half-sweeps (red, black, ...) under
     ``timer``."""
@@ -892,6 +912,202 @@ def phase_bond_timing(dev, name):
     return t
 
 
+def compare_resident(red, black, periodic, uniforms) -> tuple:
+    """K6 at one table and K7 over a schedule, one launch each, against their
+    plain versions from one input, on injected (S, 2, R, C2) uniforms; raise
+    unless equal bit for bit. Returns the max abs difference of (K6, K7)."""
+    S = uniforms.shape[0]
+    table = sigmoid_table(1.0, 0.1, 2.3).to(black.device)
+    tables = sigmoid_table(1.0, 0.1, torch.tensor(SCHEDULE[:S], dtype=torch.float32)).to(
+        black.device)
+    errs = []
+    for what, kernel, plain, args in (
+            ("K6", resident_sweeps_table, resident_sweeps_table_reference, (table, S)),
+            ("K7", resident_anneal_tables, resident_anneal_tables_reference, (tables,))):
+        got = kernel(0, red, black, *args, periodic=periodic, uniforms=uniforms)
+        want = plain(0, red, black, *args, periodic=periodic, uniforms=uniforms)
+        errs.append(max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)))
+        for a, b, colour in zip(got, want, ("red", "black")):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{what} != plain, {colour}: {int((a != b).sum())} sites differ (shape "
+                    f"{tuple(black.shape)}, {black.dtype}, periodic={periodic}, injected)")
+    torch.cuda.synchronize()
+    return tuple(errs)
+
+
+def phase_resident_exact(dev, gen, cgen):
+    """Phase 15; returns the max abs errors of K6, K7 and K8."""
+    err6 = err7 = 0.0
+    for shape, dtype, periodic in ((MAIN_SHAPE, torch.bfloat16, True),
+                                   ((1002, 1000), torch.float32, False)):
+        red = random_black(gen, shape, dtype, dev)
+        black = random_black(gen, shape, dtype, dev)
+        U = torch.randint(0, 1 << 24, (3, 2, shape[0], shape[1] // 2), generator=cgen,
+                          device=dev, dtype=torch.int32)
+        e6, e7 = compare_resident(red, black, periodic, U)
+        del U
+        err6, err7 = max(err6, e6), max(err7, e7)
+        log(f"phase 15: injected uniforms, {shape} {dtype} periodic={periodic}: K6 and K7 == "
+            "plain over 3 sweeps, one launch each")
+    red, black = (random_black(gen, MAIN_SHAPE, torch.bfloat16, dev) for _ in range(2))
+    table = sigmoid_table(1.0, 0.0, 2.269).to(dev)
+    tables = sigmoid_table(1.0, 0.0, torch.tensor([2.269, 1.5])).to(dev)
+    for what, got, want in (
+            ("K6", resident_sweeps_table(13, red, black, table, 2),
+             resident_sweeps_table_reference(13, red, black, table, 2)),
+            ("K7", resident_anneal_tables(14, red, black, tables),
+             resident_anneal_tables_reference(14, red, black, tables))):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} != plain in Philox mode: {int((a != b).sum())} "
+                                     "sites differ")
+            e = float((a.float() - b.float()).abs().max())
+            err6, err7 = (max(err6, e), err7) if what == "K6" else (err6, max(err7, e))
+    torch.cuda.synchronize()
+    log(f"phase 15: Philox mode, {MAIN_SHAPE} bf16: K6 and K7 == plain over 2 sweeps")
+
+    err8 = 0.0
+    black = random_black(gen, MAIN_SHAPE, torch.bfloat16, dev)
+    U = torch.randint(0, 1 << 16, (2, MAIN_SHAPE[0], MAIN_SHAPE[1] // 2), generator=cgen,
+                      device=dev, dtype=torch.int32)
+    for mode in MODES:
+        for u in (U, None):
+            got = decomposition_sweep(mode, black, seed=15, sweep=4, uniforms=u)
+            want = decomposition_sweep_reference(mode, black, seed=15, sweep=4, uniforms=u)
+            for a, b in zip(got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K8 {mode} != plain: {int((a != b).sum())} sites "
+                                         f"differ (injected={u is not None})")
+                err8 = max(err8, float((a.float() - b.float()).abs().max()))
+    torch.cuda.synchronize()
+    log(f"phase 15: K8 {', '.join(MODES)} at {MAIN_SHAPE} bf16 == plain, injected and Philox")
+    return err6, err7, err8
+
+
+def phase_resident_statistics(dev):
+    T = 2.5
+    red, black = (x.to(dev) for x in split_checkerboard(torch.ones((4, 4))))
+    table = sigmoid_table(1.0, 0.0, T).to(dev)
+    red, black = resident_sweeps_table(1, red, black, table, 100)
+    ms, es = [], []
+    for i in range(20000):
+        red, black = resident_sweeps_table(2 + i, red, black, table, 1)
+        ms.append(red.sum() + black.sum())
+        es.append(plane_energy_batch(red, black))
+    m, se_m = batch_means(torch.stack(ms).abs().cpu().numpy() / 16)
+    e, se_e = batch_means(torch.stack(es).cpu().numpy() / 16)
+    m_x, e_x = exact_4x4(T)
+    log(f"4x4 T=2.5 through K6: <|m|> {m:.5f} +- {se_m:.5f} (exact {m_x:.5f}); "
+        f"<e> {e:.5f} +- {se_e:.5f} (exact {e_x:.5f})")
+    if abs(m - m_x) > 4 * se_m or abs(e - e_x) > 4 * se_e:
+        raise AssertionError("K6 4x4 moments differ from exact enumeration by more than 4 SE")
+
+    T, L = 2.0, 512
+    onsager = (1.0 - np.sinh(2.0 / T) ** -4) ** 0.125
+    red, black = (x.to(dev, torch.bfloat16) for x in split_checkerboard(torch.ones((L, L))))
+    red, black = resident_sweeps(3, red, black, T, 200)
+    m = []
+    for i in range(40):
+        red, black = resident_sweeps(4 + i, red, black, T, 5)
+        m.append((red.float().sum() + black.float().sum()).abs() / (L * L))
+    m = float(torch.stack(m).mean())
+    log(f"512^2 T=2.0 ordered start through K6: <|m|> {m:.5f} (Onsager {onsager:.5f})")
+    if abs(m - onsager) > 0.01:
+        raise AssertionError("K6 512^2 magnetization differs from Onsager's by more than 0.01")
+
+    gen = torch.Generator().manual_seed(5)
+    red, black = (random_black(gen, (64, 64), torch.float32, dev) for _ in range(2))
+    red, black = resident_anneal(5, red, black, np.geomspace(5.0, 0.05, 2000))
+    e = float(plane_energy_batch(red, black)) / (64 * 64)
+    log(f"64^2 anneal through K7, 2000 sweeps T 5 -> 0.05: e/site {e}")
+    if not e < -1.85:
+        raise AssertionError(f"K7 64^2 anneal reached e/site {e}, not below -1.85")
+
+    rows = kernel_bench.steps("all", torch.bfloat16, RESIDENT_SWEEPS, dev)
+    got = {name: kernel_bench.moments(rows[name][0], torch.bfloat16, dev)
+           for name in ("fused", "resident")}
+    for name, c in got.items():
+        log(f"kernel_bench --check, {name} 128^2 T=2.5: <|m|> {c['abs_m']:.5f} +- "
+            f"{c['se_abs_m']:.5f}, <e> {c['e']:.5f} +- {c['se_e']:.5f}")
+    a, b = got["fused"], got["resident"]
+    for key in ("abs_m", "e"):
+        se = float(np.hypot(a["se_" + key], b["se_" + key]))
+        if abs(a[key] - b[key]) > 5 * se:
+            raise AssertionError(f"kernel_bench --check: resident {key} {b[key]} differs from "
+                                 f"fused {a[key]} by more than 5 SE ({se})")
+
+
+def phase_tools(dev):
+    """Phase 17; returns (kernel_bench's rows, bench's JSON, the decomposition,
+    the launches of K6, K7 and K8 on their paths)."""
+    S = RESIDENT_SWEEPS
+    kb, c = run_path(f"kernel_bench all {MAIN_SHAPE[0]}^2 bf16, {S} sweeps a call", lambda: (
+        kernel_bench.run("all", MAIN_SHAPE[0], S, 3, "bf16", device=dev, log=log)),
+        expect(4 * S, 0, 0, 0, 4))
+    log(f"kernel_bench: one K6 launch per resident_sweeps call ({c[4]} launches, 4 calls)")
+    log(json.dumps(kb))
+    n6 = c[4]
+    runs = BENCH["n_trials"] * (1 + BENCH["calls"])   # a warm-up call before each trial
+    headline, c = run_path("bench (headline K1, EA K4)", lambda: bench.run(
+        MAIN_SHAPE[0], device=dev, log=log, **BENCH),
+        expect(runs * BENCH["sweeps"], 0, runs * 2 * BENCH["ea_sweeps"]))
+    log(json.dumps(headline))
+    if set(headline) != {"metric", "value", "unit", "vs_baseline", "ea_bond_flips_per_s"}:
+        raise AssertionError(f"bench printed keys {sorted(headline)}")
+    per_graph = S + 2                                  # graph_ms's warm-up and captured launches
+    dec, c = run_path(f"kernel_decomposition {MAIN_SHAPE[0]}^2 bf16, {S} sweeps", lambda: (
+        kernel_decomposition.run(MAIN_SHAPE[0], S, dev)),
+        expect(per_graph, 0, 0, 0, 0, 0, len(MODES) * per_graph))
+    log(json.dumps(dec))
+    n8 = c[6]
+    gen = torch.Generator().manual_seed(17)
+    red, black = (random_black(gen, MAIN_SHAPE, torch.bfloat16, dev) for _ in range(2))
+    schedule = make_schedule(5.0, 0.05, 1000)
+    (red, black), c = run_path(f"resident_anneal {MAIN_SHAPE} bf16, 1000 sweeps T 5 -> 0.05",
+                               lambda: resident_anneal(18, red, black, schedule),
+                               expect(0, 0, 0, 0, 0, 1))
+    n = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    e = float(plane_energy_batch(red, black)) / n
+    log(f"resident_anneal: one K7 launch per anneal ({c[5]}); e/site {e}")
+    if not (np.isfinite(e) and e < -1.8):
+        raise AssertionError(f"resident_anneal at {MAIN_SHAPE}: e/site {e}, not below -1.8")
+    return kb, headline, dec, (n6, c[5], n8)
+
+
+def phase_resident_timing(dev, name, k1_ms, k1_plain_ms, dec):
+    """Phase 18; returns ms per sweep {K6, K7, K6 plain, K7 plain, K8 plain
+    per mode}."""
+    S = RESIDENT_SWEEPS
+    gen = torch.Generator().manual_seed(19)
+    red, black = (random_black(gen, MAIN_SHAPE, torch.bfloat16, dev) for _ in range(2))
+    table = sigmoid_table(1.0, 0.0, 2.269).to(dev)
+    tables = sigmoid_table(1.0, 0.0, torch.from_numpy(make_schedule(5.0, 0.05, S))).to(dev)
+    resident_sweeps_table(1, red, black, table, 2)
+    resident_sweeps_table_reference(1, red, black, table, 1)   # the plain version's first call
+    t = {"K6": time_sweeps(lambda n: resident_sweeps_table(2, red, black, table, n), S),
+         "K7": time_sweeps(lambda n: resident_anneal_tables(3, red, black, tables[:n]), S),
+         "K6 plain": time_sweeps(lambda n: resident_sweeps_table_reference(
+             4, red, black, table, n), 4),
+         "K7 plain": time_sweeps(lambda n: resident_anneal_tables_reference(
+             5, red, black, tables[:n]), 4)}
+    for mode in MODES:
+        t[f"K8 {mode} plain"] = time_sweeps(lambda n: [decomposition_sweep_reference(
+            mode, black, seed=6, sweep=k) for k in range(n)], 20)
+    blocks = resident_grid_blocks(*red.shape)
+    sites = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    log(f"timing {MAIN_SHAPE} bf16 periodic on {name}: K6 {t['K6']:.6f} ms/sweep "
+        f"({sites / t['K6'] * 1e3:.4e} flips/s, one launch of {S} sweeps, {blocks} blocks of "
+        f"256), K7 {t['K7']:.6f} ms/sweep ({S}-sweep schedule); K1 {k1_ms:.6f} ms/sweep "
+        f"(phase 6); plain K6 {t['K6 plain']:.6f}, K7 {t['K7 plain']:.6f}, K1 "
+        f"{k1_plain_ms:.6f} ms/sweep")
+    for mode in MODES:
+        log(f"timing K8 {mode} on {name}: {dec['ms_per_sweep'][mode]:.6f} ms/sweep (a CUDA graph "
+            f"of {S}), plain {t[f'K8 {mode} plain']:.6f} ms/sweep; K1 in the same graph "
+            f"timing {dec['ms_per_sweep']['baseline']:.6f}")
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -904,8 +1120,9 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         list(pool.map(lambda build: build(), (_build.fused_sweep_library,
-                                              _build.bond_sweep_library)))
-    log(f"phase 1: built the fused-sweep and the bond kernels in "
+                                              _build.bond_sweep_library,
+                                              _build.resident_sweep_library)))
+    log(f"phase 1: built the fused-sweep, the bond and the resident kernels in "
         f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
@@ -956,49 +1173,71 @@ def main() -> int:
     bond_times = phase_bond_timing(dev, name)
     log("phase 14: timed")
 
-    source = "tsu_tpu_torch/csrc/checkerboard_fused.cu"
+    err6, err7, err8 = phase_resident_exact(dev, gen, cgen)
+    log("phase 15: K6, K7 and the K8 variants == their plain versions")
+
+    phase_resident_statistics(dev)
+    log("phase 16: resident statistics agree with the exact references and with K1")
+
+    _, _, dec, (launches6, launches7, launches8) = phase_tools(dev)
+    log("phase 17: the tools and the resident anneal ran through K6, K7 and K8")
+
+    rt = phase_resident_timing(dev, name, ms, plain_ms, dec)
+    log("phase 18: timed")
+
+    R, C2 = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2
+    site = R * C2                                     # compact sites of one 4096^2 plane
+    B, Rb, Cb = ENSEMBLE
+    batched_site = B * Rb * Cb // 2
+    ladder_site = LADDER_BATCH * PT_SHAPE[0] * PT_SHAPE[1] // 2
+    S = RESIDENT_SWEEPS
+    fused = "tsu_tpu_torch/csrc/checkerboard_fused.cu"
     bonds = "tsu_tpu_torch/csrc/checkerboard_bonds.cu"
-    print(json.dumps({"kernels": [{
-        "name": "fused_sweep",
-        "route": "cuda",
-        "source": source,
-        "replaces": "tsu_tpu/ops/checkerboard_fused.py:136",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "fused_sweep_batched",
-        "route": "cuda",
-        "source": source,
-        "replaces": "tsu_tpu/ops/checkerboard_fused.py:494",
-        "launches": launches2,
-        "max_abs_err": err2,
-        "ms": ms2,
-        "plain_ms": plain_ms2,
-    }, {
-        "name": "bond_halfsweep",
-        "route": "cuda",
-        "source": bonds,
-        "replaces": "tsu_tpu/ops/checkerboard_bonds_pallas.py:71",
-        "launches": launches4,
-        "max_abs_err": err4,
-        "ms": bond_times["K4 discrete"][0],
-        "plain_ms": bond_times["K4 discrete"][2],
-        "continuous_ms": bond_times["K4 continuous"][0],
-        "continuous_plain_ms": bond_times["K4 continuous"][2],
-        "continuous_band_sites": n_band,
-        "continuous_band_differ": n_differ,
-    }, {
-        "name": "bond_halfsweep_batched",
-        "route": "cuda",
-        "source": bonds,
-        "replaces": "tsu_tpu/ops/checkerboard_bonds_pallas.py:320",
-        "launches": launches5,
-        "max_abs_err": err5,
-        "ms": bond_times["K5 discrete"][0],
-        "plain_ms": bond_times["K5 discrete"][2],
-    }]}))
+    resident = "tsu_tpu_torch/csrc/checkerboard_resident.cu"
+
+    def entry(name_, source, replaces, n, e, t, plain_t, n_bytes, **extra):
+        """One kernel of the JSON line; bound_ms from the bytes the work must
+        move (each input read once, each output written once)."""
+        return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": e, "ms": t, "plain_ms": plain_t,
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None,
+                **extra}
+
+    # Bytes a unit of work must move: K1 and K2 read black and write red and
+    # black (2 B each at bf16) per sweep; K4 reads the other plane and a code
+    # byte and writes its colour per half-sweep, K5 the same with the codes
+    # shared by the batch; K6 and K7 read and write both planes once per call
+    # of S sweeps (per sweep: / S) and K7 reads a 9-entry table per sweep; a
+    # K8 variant writes both planes and (nomath) reads black.
+    dec_bytes = {"prng_only": 2 * 2 * site, "prng_grouped": 2 * 2 * site,
+                 "nomath": 3 * 2 * site}
+    print(json.dumps({"kernels": [
+        entry("fused_sweep", fused, "tsu_tpu/ops/checkerboard_fused.py:136", launches, err, ms,
+              plain_ms, 3 * 2 * site + 9 * 4),
+        entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
+              err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4),
+        entry("bond_halfsweep", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:71", launches4,
+              err4, bond_times["K4 discrete"][0], bond_times["K4 discrete"][2],
+              5 * site + 9 * 4,
+              continuous_ms=bond_times["K4 continuous"][0],
+              continuous_plain_ms=bond_times["K4 continuous"][2],
+              continuous_bound_ms=bound_ms(7 * 4 * site),
+              continuous_band_sites=n_band, continuous_band_differ=n_differ),
+        entry("bond_halfsweep_batched", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:320",
+              launches5, err5, bond_times["K5 discrete"][0], bond_times["K5 discrete"][2],
+              4 * ladder_site + PT_SHAPE[0] * PT_SHAPE[1] // 2 + LADDER_BATCH * 11 * 4),
+        entry("resident_sweeps", resident, "tsu_tpu/ops/checkerboard_resident.py:56", launches6,
+              err6, rt["K6"], rt["K6 plain"], (4 * 2 * site + 9 * 4) / S),
+        entry("resident_anneal", resident, "tsu_tpu/ops/checkerboard_resident.py:219", launches7,
+              err7, rt["K7"], rt["K7 plain"], (4 * 2 * site + S * 9 * 4) / S),
+        entry("decomposition_sweep", fused, "scripts/kernel_decomposition.py:41", launches8,
+              err8, dec["ms_per_sweep"]["prng_only"], rt["K8 prng_only plain"],
+              dec_bytes["prng_only"],
+              modes={m: {"ms": dec["ms_per_sweep"][m], "plain_ms": rt[f"K8 {m} plain"],
+                         "bound_ms": bound_ms(dec_bytes[m])} for m in MODES},
+              baseline_ms=dec["ms_per_sweep"]["baseline"],
+              share_of_baseline=dec["share_of_baseline"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,7 @@ def test_unknown_schedule_raises():
 
 def test_ferromagnet_reaches_ground_state():
     """tests/test_samplers.py::TestLatticeAnnealing::test_ferromagnet_reaches_ground_state."""
-    state, e = anneal_lattice(0, (8, 8), n_steps=400, n_chains=2)
+    state, e = anneal_lattice(0, (8, 8), n_steps=400, n_chains=2, device="cpu")
     assert e == -128.0   # periodic 8x8 ferromagnet: E = -2N
     assert state.shape == (8, 8) and abs(float(state.mean())) == 1.0
 
@@ -38,13 +38,14 @@ def test_ferromagnet_reaches_ground_state():
 def test_grid_find_ground_state():
     """tests/test_ising.py::TestIsingGrid::test_ground_state: periodic 6x6,
     E0 = -2 * 36."""
-    state, e = IsingGrid((6, 6), periodic=True, seed=0).find_ground_state(n_steps=300)
+    state, e = IsingGrid((6, 6), periodic=True, seed=0, device="cpu").find_ground_state(n_steps=300)
     assert e == -72.0 and state.shape == (36,)
 
 
 def test_generator_seed_and_int_seed_draw_alike():
-    a = anneal_lattice(torch.Generator().manual_seed(4), (6, 4), n_steps=20, periodic=False)
-    b = anneal_lattice(4, (6, 4), n_steps=20, periodic=False)
+    a = anneal_lattice(torch.Generator().manual_seed(4), (6, 4), n_steps=20, periodic=False,
+                       device="cpu")
+    b = anneal_lattice(4, (6, 4), n_steps=20, periodic=False, device="cpu")
     assert torch.equal(a[0], b[0]) and a[1] == b[1]
     assert float(lattice_energy_batch(a[0], periodic=False)) == a[1]
 
@@ -60,12 +61,12 @@ def test_runs_exactly_n_steps_sweeps(monkeypatch):
         return plain(blacks, tables, keys, **kw)
 
     monkeypatch.setattr(checkerboard_fused, "fused_sweep_batched_reference", counting)
-    anneal_lattice(2, (8, 8), n_steps=25, n_chains=3, track_every=10)
+    anneal_lattice(2, (8, 8), n_steps=25, n_chains=3, track_every=10, device="cpu")
     assert calls == [[g] * 3 for g in range(25)]   # one global sweep counter
 
 
 def test_zero_steps_return_the_initial_state():
-    state, e = anneal_lattice(3, (6, 6), n_steps=0, n_chains=2)
+    state, e = anneal_lattice(3, (6, 6), n_steps=0, n_chains=2, device="cpu")
     assert float(lattice_energy_batch(state)) == e
     with pytest.raises(ValueError):
-        anneal_lattice(3, (6, 6), n_steps=5, track_every=0)
+        anneal_lattice(3, (6, 6), n_steps=5, track_every=0, device="cpu")

@@ -88,7 +88,7 @@ def test_phase_transition_like_jax(ensemble):
     and disordered at T = 3.6."""
     Ts = np.array([1.2, 3.6])
     port = demonstrate_phase_transition(sizes=[8], temperatures=Ts, n_samples=40, seed=0,
-                                        ensemble=ensemble)
+                                        ensemble=ensemble, device="cpu")
     ref = jax_phase(sizes=[8], temperatures=Ts, n_samples=40, seed=0, ensemble=ensemble)
     assert port.keys() == ref.keys() == {8}
     assert port[8].keys() == ref[8].keys()

@@ -1,7 +1,9 @@
 """The CUDA kernels (the fused sweep of one lattice and of a batch of
-lattices, the bond half-sweep of one lattice and of a batch of replicas)
-against their plain PyTorch versions, and the batched and spin-glass paths
-on the card against the same paths on the CPU.
+lattices, the bond half-sweep of one lattice and of a batch of replicas, the
+resident multi-sweep kernel at one table and over a schedule, the fused
+sweep's decomposition variants) against their plain PyTorch versions, and
+the batched and spin-glass paths on the card against the same paths on the
+CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
 Hopper card and nvcc, run ``python -m pytest -m gpu tests/test_torch_gpu.py``;
@@ -32,6 +34,17 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
     continuous_band,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
+from tsu_tpu_torch.ops.checkerboard_resident import (
+    resident_anneal_tables,
+    resident_anneal_tables_reference,
+    resident_sweeps_table,
+    resident_sweeps_table_reference,
+)
+from tsu_tpu_torch.ops.kernel_decomposition import (
+    MODES,
+    decomposition_sweep,
+    decomposition_sweep_reference,
+)
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.samplers import (
     anneal_lattice,
@@ -338,3 +351,72 @@ def test_spin_glass_paths_on_cuda_equal_those_on_cpu(cuda):
     for path in (anneal, tempering, search):
         for a, b in zip(path(cuda), path(torch.device("cpu"))):
             assert torch.equal(a, b), path.__name__
+
+
+def _planes(seed, R, C, dtype, device):
+    rng = np.random.default_rng(seed)
+    lat = torch.as_tensor(np.where(rng.random((R, C)) < 0.5, 1.0, -1.0), dtype=dtype)
+    return tuple(x.contiguous().to(device) for x in split_checkerboard(lat))
+
+
+@pytest.mark.parametrize("shape,dtype,periodic", [
+    ((64, 64), torch.bfloat16, True),
+    ((18, 20), torch.float32, False),     # R % 16 != 0
+    ((34, 522), torch.bfloat16, False),   # C/2 odd
+    ((2, 2), torch.float32, True),        # one compact column
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_resident_kernels_match_plain_versions(cuda, shape, dtype, periodic, injected):
+    """K6 (one table, 4 sweeps) and K7 (a 4-sweep schedule) in one launch
+    each, bit for bit against their plain versions; the inputs stay as they
+    were and each call counts one launch."""
+    R, C = shape
+    red, black = _planes(13, R, C, dtype, cuda)
+    before = red.clone(), black.clone()
+    U = None
+    if injected:
+        U = torch.as_tensor(np.random.default_rng(14).integers(0, 1 << 24, (4, 2, R, C // 2)),
+                            dtype=torch.int32, device=cuda)
+    table = sigmoid_table(0.7, 0.1, 2.3).to(cuda)
+    tables = sigmoid_table(1.0, 0.0, torch.tensor([4.0, 2.0, 1.0, 0.5])).to(cuda)
+    counts = resident_sweeps_table.launches, resident_anneal_tables.launches
+    got = resident_sweeps_table(21, red, black, table, 4, periodic=periodic, uniforms=U)
+    want = resident_sweeps_table_reference(21, red, black, table, 4, periodic=periodic,
+                                           uniforms=U)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = resident_anneal_tables(22, red, black, tables, periodic=periodic, uniforms=U)
+    want = resident_anneal_tables_reference(22, red, black, tables, periodic=periodic,
+                                            uniforms=U)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(red, before[0]) and torch.equal(black, before[1])
+    assert (resident_sweeps_table.launches, resident_anneal_tables.launches) == (
+        counts[0] + 1, counts[1] + 1)
+
+
+def test_resident_kernel_rejects_operands_off_the_device(cuda):
+    red, black = _planes(15, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        resident_sweeps_table(0, red, black, sigmoid_table(1.0, 0.0, 2.0), 2)   # table on the CPU
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("shape,dtype,periodic", [
+    ((64, 64), torch.bfloat16, True),
+    ((18, 20), torch.float32, False),
+    ((34, 522), torch.bfloat16, False),
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_decomposition_kernels_match_plain_versions(cuda, mode, shape, dtype, periodic,
+                                                    injected):
+    R, C = shape
+    _, black = _planes(16, R, C, dtype, cuda)
+    U = None
+    if injected:
+        U = torch.as_tensor(np.random.default_rng(17).integers(0, 1 << 16, (2, R, C // 2)),
+                            dtype=torch.int32, device=cuda)
+    before = decomposition_sweep.launches
+    got = decomposition_sweep(mode, black, seed=4, sweep=3, periodic=periodic, uniforms=U)
+    want = decomposition_sweep_reference(mode, black, seed=4, sweep=3, periodic=periodic,
+                                         uniforms=U)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert decomposition_sweep.launches == before + 1

@@ -60,7 +60,7 @@ def _abs_m_and_e(samples, energies):
 
 @pytest.fixture(scope="module")
 def port_samples():
-    grid = IsingGrid((4, 4), periodic=True, seed=0,
+    grid = IsingGrid((4, 4), periodic=True, seed=0, device="cpu",
                      config=IsingConfig(n_burnin=100, n_sweeps=1))
     s = grid.sample(n_samples=N_SAMPLES, temperature=T)
     return s, grid.energies(s)
@@ -89,7 +89,7 @@ def test_grid_sample_matches_jax_grid(port_samples):
 
 def test_same_seed_same_samples():
     def run(seed):
-        return IsingGrid((8, 6), periodic=False, seed=seed,
+        return IsingGrid((8, 6), periodic=False, seed=seed, device="cpu",
                          config=IsingConfig(n_burnin=5, n_sweeps=2)).sample(
             n_samples=3, temperature=2.269)
 
@@ -99,14 +99,14 @@ def test_same_seed_same_samples():
 
 
 def test_initial_state_is_honoured():
-    grid = IsingGrid((8, 8), periodic=True, seed=1,
+    grid = IsingGrid((8, 8), periodic=True, seed=1, device="cpu",
                      config=IsingConfig(n_burnin=3, n_sweeps=1))
     s = grid.sample(n_samples=2, initial_state=np.ones(64), temperature=0.05)
     np.testing.assert_array_equal(s, np.ones((2, 64), np.float32))
 
 
 def test_sample_observables_match_exact_enumeration():
-    grid = IsingGrid((4, 4), periodic=True, seed=3,
+    grid = IsingGrid((4, 4), periodic=True, seed=3, device="cpu",
                      config=IsingConfig(n_burnin=50, n_sweeps=1))
     out = grid.sample_observables(n_samples=N_SAMPLES, temperature=T)
     m, e = out["magnetization"], out["energy"]
@@ -120,7 +120,7 @@ def test_sample_observables_match_exact_enumeration():
 def test_observables_match_jax_grid(periodic):
     rng = np.random.default_rng(5)
     samples = np.where(rng.random((6, 36)) < 0.5, 1.0, -1.0).astype(np.float32)
-    port = IsingGrid((6, 6), coupling_strength=0.7, periodic=periodic, seed=0)
+    port = IsingGrid((6, 6), coupling_strength=0.7, periodic=periodic, seed=0, device="cpu")
     ref = JaxIsingGrid((6, 6), coupling_strength=0.7, periodic=periodic,
                        seed=0, use_pallas=False)
     np.testing.assert_allclose(port.energies(samples), ref.energies(samples),
@@ -141,7 +141,7 @@ def test_interop_carries_jax_state():
     r2, b2 = lattice_to_planes(lat)
     assert torch.equal(red, r2) and torch.equal(black, b2)
     ref = JaxIsingGrid((8, 10), periodic=True, seed=0, use_pallas=False)
-    port = IsingGrid((8, 10), periodic=True, seed=0)
+    port = IsingGrid((8, 10), periodic=True, seed=0, device="cpu")
     assert port.energy(merge_checkerboard(red, black).numpy()) == ref.energy(lat)
     cfg = JaxIsingConfig(temperature=1.7, n_burnin=12, n_sweeps=3,
                          coupling_strength=0.5, n_chains=2)
@@ -158,13 +158,14 @@ def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
         "import tsu_tpu_torch, tsu_tpu_torch.samplers, tsu_tpu_torch.interop\n"
         "from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble\n"
         "from tsu_tpu_torch.ops import _build\n"
-        "tsu_tpu_torch.IsingGrid((4, 4), seed=0).sample(n_samples=2)\n"
+        "tsu_tpu_torch.IsingGrid((4, 4), seed=0, device='cpu').sample(n_samples=2)\n"
         "sample_grid_ensemble(torch.Generator().manual_seed(0), torch.ones(3, 4, 4),\n"
         "                     [1.5, 2.5, 3.5], n_samples=2, n_burnin=2)\n"
         "J = torch.ones(4, 4)\n"
-        "tsu_tpu_torch.IsingGrid((4, 4), seed=0, bonds=(J, -J)).sample(n_samples=2)\n"
+        "tsu_tpu_torch.IsingGrid((4, 4), seed=0, bonds=(J, -J), device='cpu').sample(\n"
+        "    n_samples=2)\n"
         "tsu_tpu_torch.parallel_tempering_bonds(0, J, -J, temperatures=[1.0, 2.0],\n"
-        "                                       n_samples=2, n_burnin=2)\n"
+        "                                       n_samples=2, n_burnin=2, device='cpu')\n"
         "print(json.dumps({'jax': 'jax' in sys.modules,\n"
         "                  'triton': 'triton' in sys.modules,\n"
         "                  'built': _build.fused_sweep_library.cache_info().currsize\n"
@@ -186,18 +187,25 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     assert (fused_sweep.launches, fused_sweep_batched.launches) == before
 
 
-def test_default_device_is_torch_default():
-    assert IsingGrid((4, 4), seed=0).device == torch.get_default_device()
+def test_default_device_is_the_card(monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU:
+    without CUDA the default raises, and device="cpu" is the plain path."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigurationError, match="CUDA is not available"):
+        IsingGrid((4, 4), seed=0)
+    assert IsingGrid((4, 4), seed=0, device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("call", [
-    lambda: IsingGrid((5, 4)),
-    lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4)))).set_coupling(0, 5, 1.0),
+    lambda: IsingGrid((5, 4), device="cpu"),
+    lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4))),
+                      device="cpu").set_coupling(0, 5, 1.0),
     lambda: tsu_tpu_torch.anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)),
-                                            checkpoint_path="ck"),
-    lambda: IsingGrid((4, 4)).set_coupling(0, 5, 1.0),
-    lambda: demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1),
-    lambda: IsingGrid((4, 4)).sample_observables(mesh=object()),
+                                            checkpoint_path="ck", device="cpu"),
+    lambda: IsingGrid((4, 4), device="cpu").set_coupling(0, 5, 1.0),
+    lambda: demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1,
+                                         device="cpu"),
+    lambda: IsingGrid((4, 4), device="cpu").sample_observables(mesh=object()),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -207,7 +215,7 @@ def test_later_slices_raise_not_implemented(call):
 def test_find_ground_state_returns_a_flat_state_and_its_energy():
     """An open 8x6 ferromagnet anneals to E0 = -(8*5 + 7*6); the state
     returned is flat, uniform and has the energy returned."""
-    grid = IsingGrid((8, 6), periodic=False, seed=1)
+    grid = IsingGrid((8, 6), periodic=False, seed=1, device="cpu")
     state, energy = grid.find_ground_state(n_steps=400)
     assert energy == -82.0
     assert state.shape == (48,) and state.dtype == np.float32
@@ -216,7 +224,7 @@ def test_find_ground_state_returns_a_flat_state_and_its_energy():
 
 def test_bad_shapes_and_configs_raise():
     with pytest.raises(ConfigurationError):
-        IsingGrid((0, 4))
+        IsingGrid((0, 4), device="cpu")
     with pytest.raises(ConfigurationError):
         IsingConfig(temperature=0.0)
     assert tsu_tpu_torch.IsingConfig is IsingConfig

@@ -25,6 +25,8 @@ from tsu_tpu_torch.samplers import (  # noqa: E402
     pure_pm1_applicable,
 )
 
+CPU = "cpu"   # the plain path; entry points default to the card
+
 
 def _pm1(seed, L):
     rng = np.random.default_rng(seed)
@@ -50,7 +52,7 @@ def test_bond_moments_match_exact_enumeration():
     JAX package's test takes it), <e> and <m^2> within 4 batch-means SE."""
     rng = np.random.default_rng(0)
     Jh, Jv = rng.normal(0, 0.8, (2, 4, 4)).astype(np.float32)
-    g = IsingGrid((4, 4), periodic=True, seed=0, bonds=(Jh, Jv),
+    g = IsingGrid((4, 4), periodic=True, seed=0, bonds=(Jh, Jv), device=CPU,
                   config=IsingConfig(temperature=2.0, n_burnin=100, n_sweeps=1))
     s = g.sample(n_samples=3000)
     ex = exact_ising_moments(dense_from_bonds(Jh, Jv, True), np.zeros(16), 2.0)
@@ -65,10 +67,10 @@ def test_bond_moments_match_exact_enumeration():
 def test_observables_match_the_samples_path():
     rng = np.random.default_rng(1)
     Jh, Jv = rng.normal(size=(2, 8, 8)).astype(np.float32)
-    g = IsingGrid((8, 8), periodic=False, seed=3, bonds=(Jh, Jv),
+    g = IsingGrid((8, 8), periodic=False, seed=3, bonds=(Jh, Jv), device=CPU,
                   config=IsingConfig(n_burnin=5, n_sweeps=2))
     out = g.sample_observables(n_samples=4, temperature=1.5)
-    s = IsingGrid((8, 8), periodic=False, seed=3, bonds=(Jh, Jv),
+    s = IsingGrid((8, 8), periodic=False, seed=3, bonds=(Jh, Jv), device=CPU,
                   config=IsingConfig(n_burnin=5, n_sweeps=2)).sample(4, temperature=1.5)
     np.testing.assert_array_equal(out["magnetization"], s.mean(axis=1))
     np.testing.assert_allclose(out["energy"], g.energies(s), rtol=0, atol=1e-5)
@@ -77,7 +79,7 @@ def test_observables_match_the_samples_path():
 @pytest.mark.parametrize("periodic", [True, False])
 def test_energies_and_set_coupling_match_jax_grid(periodic):
     Jh, Jv = np.random.default_rng(2).normal(size=(2, 6, 6)).astype(np.float32)
-    port = IsingGrid((6, 6), periodic=periodic, seed=0, bonds=(Jh, Jv))
+    port = IsingGrid((6, 6), periodic=periodic, seed=0, bonds=(Jh, Jv), device=CPU)
     ref = JaxIsingGrid((6, 6), periodic=periodic, seed=0, use_pallas=False, bonds=(Jh, Jv))
     edits = [(0, 1, 0.5), (0, 6, -2.0), (7, 13, 1.5)] + ([(0, 5, 3.0), (2, 32, -1.0)]
                                                           if periodic else [])
@@ -86,7 +88,8 @@ def test_energies_and_set_coupling_match_jax_grid(periodic):
         ref.set_coupling(i, j, strength)
     s = np.where(np.random.default_rng(3).random((5, 36)) < 0.5, 1.0, -1.0).astype(np.float32)
     np.testing.assert_allclose(port.energies(s), ref.energies(s), rtol=0, atol=1e-4)
-    uniform = IsingGrid((6, 6), coupling_strength=0.7, periodic=periodic, seed=0)
+    uniform = IsingGrid((6, 6), coupling_strength=0.7, periodic=periodic, seed=0,
+                        device=CPU)
     uniform.set_coupling(3, 4, -0.7)
     ref_u = JaxIsingGrid((6, 6), coupling_strength=0.7, periodic=periodic, seed=0,
                          use_pallas=False)
@@ -95,12 +98,17 @@ def test_energies_and_set_coupling_match_jax_grid(periodic):
 
 
 @pytest.mark.parametrize("call,error", [
-    (lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 2)))), ConfigurationError),
-    (lambda: IsingGrid((4, 4)).set_bonds(np.ones((2, 4)), np.ones((4, 4))), ConfigurationError),
-    (lambda: IsingGrid((4, 4), periodic=False).set_coupling(0, 3, 1.0), NotImplementedError),
-    (lambda: anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)), checkpoint_path="ck"),
+    (lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 2))), device=CPU),
+     ConfigurationError),
+    (lambda: IsingGrid((4, 4), device=CPU).set_bonds(np.ones((2, 4)), np.ones((4, 4))),
+     ConfigurationError),
+    (lambda: IsingGrid((4, 4), periodic=False, device=CPU).set_coupling(0, 3, 1.0),
      NotImplementedError),
-    (lambda: anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)), resume=True),
+    (lambda: anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)), checkpoint_path="ck",
+                               device=CPU),
+     NotImplementedError),
+    (lambda: anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)), resume=True,
+                               device=CPU),
      NotImplementedError),
 ])
 def test_bond_error_paths(call, error):
@@ -133,7 +141,7 @@ def test_anneal_returns_a_state_and_its_energy_and_beats_a_quench(discrete):
     Jh, Jv = _pm1(4, 8)
     if not discrete:
         Jh = Jh * 1.05
-    state, e = anneal_spin_glass(2, Jh, Jv, n_steps=400, n_restarts=2)
+    state, e = anneal_spin_glass(2, Jh, Jv, n_steps=400, n_restarts=2, device=CPU)
     assert state.shape == (8, 8) and state.dtype == np.float32
     assert set(np.unique(state)) <= {-1.0, 1.0}
     assert e / 64 < -1.2 * (1.05 if not discrete else 1.0)
@@ -142,16 +150,16 @@ def test_anneal_returns_a_state_and_its_energy_and_beats_a_quench(discrete):
 
 def test_anneal_reaches_the_exact_ground_state():
     Jh, Jv = _pm1(5, 4)
-    _, e = anneal_spin_glass(0, Jh, Jv, n_steps=300, n_restarts=2)
+    _, e = anneal_spin_glass(0, Jh, Jv, n_steps=300, n_restarts=2, device=CPU)
     assert e == _ground_energy(Jh, Jv)
 
 
 def test_find_ground_state_with_bonds_and_seed_reproducibility():
     Jh, Jv = _pm1(6, 8)
-    a = IsingGrid((8, 8), periodic=True, seed=4, bonds=(Jh, Jv)).find_ground_state(200)
-    b = IsingGrid((8, 8), periodic=True, seed=4, bonds=(Jh, Jv)).find_ground_state(200)
+    a = IsingGrid((8, 8), periodic=True, seed=4, bonds=(Jh, Jv), device=CPU).find_ground_state(200)
+    b = IsingGrid((8, 8), periodic=True, seed=4, bonds=(Jh, Jv), device=CPU).find_ground_state(200)
     assert a[0].shape == (64,) and a[1] == b[1] and np.array_equal(a[0], b[0])
-    grid = IsingGrid((8, 8), periodic=True, seed=4, bonds=(Jh, Jv))
+    grid = IsingGrid((8, 8), periodic=True, seed=4, bonds=(Jh, Jv), device=CPU)
     assert grid.energy(a[0]) == a[1]
 
 
@@ -160,7 +168,7 @@ def pt_runs():
     Jh, Jv = _pm1(7, 8)
     kw = dict(temperatures=np.geomspace(0.6, 2.0, 5), n_samples=40, n_burnin=10,
               swap_interval=2)
-    port = parallel_tempering_bonds(1, Jh, Jv, **kw)
+    port = parallel_tempering_bonds(1, Jh, Jv, device=CPU, **kw)
     ref = jax_pt_bonds(jax.random.key(1), Jh, Jv, use_pallas=False, **kw)
     return port, ref
 
@@ -183,7 +191,7 @@ def test_pt_bonds_cold_rung_matches_exact_enumeration():
     and <m^2> within 4 batch-means SE of enumeration at T = 1.0."""
     Jh, Jv = _pm1(8, 4)
     cold, info = parallel_tempering_bonds(2, Jh, Jv, temperatures=np.linspace(1.0, 2.0, 4),
-                                          n_samples=3000, n_burnin=50, swap_interval=1)
+                                          n_samples=3000, n_burnin=50, swap_interval=1, device=CPU)
     ex = exact_ising_moments(dense_from_bonds(Jh, Jv, True), np.zeros(16), 1.0)
     e = lattice_energy_bonds(cold, Jh, Jv).numpy()
     m2 = cold.double().mean((1, 2)).numpy() ** 2
@@ -194,6 +202,6 @@ def test_pt_bonds_cold_rung_matches_exact_enumeration():
 
 def test_pt_bonds_identical_temperatures_always_swap():
     _, info = parallel_tempering_bonds(3, *_pm1(9, 8), temperatures=[1.0, 1.0, 1.0],
-                                       n_samples=16, n_burnin=4, swap_interval=1)
+                                       n_samples=16, n_burnin=4, swap_interval=1, device=CPU)
     assert np.all(info["pair_acceptance"] == 1.0)
     assert int(info["pair_attempts"].sum()) == info["swap_attempts"]

@@ -77,7 +77,8 @@ def test_cold_rung_matches_exact_enumeration():
     """4 rungs from T = 2.0 to 3.0 on the periodic 4x4 lattice: the cold
     rung's <|m|> and <e> per site within 4 standard errors of T = 2.0."""
     cold, info = parallel_tempering_lattice(0, (4, 4), temperatures=np.linspace(2.0, 3.0, 4),
-                                            n_samples=1500, swap_interval=1, n_burnin=50)
+                                            n_samples=1500, swap_interval=1, n_burnin=50,
+                                            device="cpu")
     m = cold.double().mean((1, 2)).abs().numpy()
     e = lattice_energy_batch(cold).numpy() / 16
     exact = exact_ising_moments(_dense_grid_couplings(4, 4), np.zeros(16), 2.0)
@@ -89,7 +90,7 @@ def test_cold_rung_matches_exact_enumeration():
 @pytest.fixture(scope="module")
 def both_runs():
     kw = dict(temperatures=LADDER, n_samples=600, swap_interval=1, n_burnin=50)
-    port = parallel_tempering_lattice(1, (8, 8), **kw)
+    port = parallel_tempering_lattice(1, (8, 8), device="cpu", **kw)
     ref = jax_pt(jax.random.key(1), (8, 8), use_pallas=False, **kw)
     return port, ref
 

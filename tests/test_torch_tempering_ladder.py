@@ -62,7 +62,7 @@ def ladder16():
     temps, info = build_tempering_ladder(
         2, Jh, Jv, T_min=0.4, T_max=2.0, target_acceptance=0.3, accept_floor=0.2, n_pilot=8,
         pilot_burnin=32, pilot_measure=48, feedback_rounds=2, feedback_iters=64,
-        feedback_burnin=16, pad_multiple=8)
+        feedback_burnin=16, pad_multiple=8, device="cpu")
     return Jh, Jv, temps, info
 
 
@@ -76,7 +76,7 @@ def test_ladder_builder_hits_target_acceptance(ladder16):
     assert meas.min() >= 0.1
     assert len(info["predicted_acceptance"]) == len(temps) - 1
     _, pt_info = parallel_tempering_bonds(3, Jh, Jv, temperatures=temps, n_samples=64,
-                                          n_burnin=16, swap_interval=1)
+                                          n_burnin=16, swap_interval=1, device="cpu")
     assert pt_info["pair_acceptance"].min() >= 0.08
     assert 0.1 <= pt_info["swap_acceptance_rate"] <= 0.9
 
@@ -94,7 +94,8 @@ def test_ladder_scales_with_system_size():
         Jh, Jv = _pm1(L, L)
         _, info = build_tempering_ladder(
             100 + L, Jh, Jv, T_min=0.5, T_max=2.0, target_acceptance=0.3, n_pilot=8,
-            pilot_burnin=32, pilot_measure=48, feedback_rounds=0, pad_multiple=8)
+            pilot_burnin=32, pilot_measure=48, feedback_rounds=0, pad_multiple=8,
+            device="cpu")
         counts[L] = info["n_rungs"]
     assert counts[24] > counts[8]
 
@@ -152,7 +153,7 @@ def test_pt_ground_state_search_is_exact_on_an_enumerable_instance():
     s = 2.0 * ((np.arange(2**16)[:, None] >> np.arange(16)) & 1) - 1.0
     exact = float((-0.5 * np.einsum("bi,ij,bj->b", s, J, s)).min())
     out = pt_ground_state_search(5, Jh, Jv, temperatures=np.geomspace(0.3, 2.0, 8),
-                                 n_iters=150, n_sweeps=1, quench_sweeps=12)
+                                 n_iters=150, n_sweeps=1, quench_sweeps=12, device="cpu")
     assert out["best_energy"] == exact
     s_best = out["best_state"]
     e_check = -np.sum(Jh * s_best * np.roll(s_best, -1, 1)) - np.sum(
@@ -164,12 +165,13 @@ def test_pt_ground_state_search_with_copies_and_houdayer():
     Jh, Jv = _pm1(21, 8)
     kw = dict(temperatures=np.geomspace(0.4, 2.0, 6), n_iters=60, n_sweeps=1, n_copies=2,
               houdayer_every=5, quench_sweeps=6)
-    out = pt_ground_state_search(1, Jh, Jv, **kw)
+    out = pt_ground_state_search(1, Jh, Jv, device="cpu", **kw)
     ref = jladder.pt_ground_state_search(1, Jh, Jv, use_pallas=False, **kw)
     assert out.keys() == ref.keys()
     assert out["houdayer_every"] == 5 and out["n_copies"] == 2 and out["best_energy"] < -64
     np.testing.assert_array_equal(out["pair_attempts"], ref["pair_attempts"])
     assert out["discrete_table_path"] is True
-    assert pt_ground_state_search(1, Jh, Jv, **kw)["best_energy"] == out["best_energy"]
+    assert pt_ground_state_search(1, Jh, Jv, device="cpu", **kw)["best_energy"] == out["best_energy"]
     with pytest.raises(NotImplementedError):
-        pt_ground_state_search(1, Jh, Jv, checkpoint_path="ck", **kw)
+        pt_ground_state_search(1, Jh, Jv, checkpoint_path="ck", device="cpu",
+                               **kw)

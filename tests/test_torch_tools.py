@@ -1,0 +1,92 @@
+"""The port's measurement tools on the CPU: the headline bench,
+kernel_bench and kernel_decomposition run at 64^2 when asked for the CPU and
+raise without a card otherwise; importing the tools imports no JAX or Triton
+and builds nothing."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tsu_tpu_torch.config import ConfigurationError
+from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition
+
+REPO = Path(__file__).resolve().parents[1]
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ea_bond_flips_per_s"}   # bench.py's
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.splitlines()[-1])
+
+
+def test_bench_on_the_cpu_prints_bench_py_keys(capsys):
+    assert bench.main(["--device", "cpu", "--size", "64", "--sweeps", "3", "--ea-sweeps", "2",
+                       "--calls", "1", "--trials", "3"]) == 0
+    out = _last_json(capsys)
+    assert set(out) == BENCH_KEYS
+    assert out["metric"] == "ising_spin_flips_per_s_per_chip_64x64" and out["unit"] == "flips/s"
+    assert out["value"] > 0 and out["ea_bond_flips_per_s"] > 0
+    assert out["vs_baseline"] == pytest.approx(out["value"] / bench.REFERENCE_FLIPS_PER_S)
+
+
+def test_kernel_bench_on_the_cpu_times_every_row(capsys):
+    assert kernel_bench.main(["all", "--device", "cpu", "--size", "64", "--sweeps", "4",
+                              "--iters", "1", "--dtype", "f32"]) == 0
+    out = _last_json(capsys)
+    assert out["device"] == "cpu" and out["size"] == 64 and out["check"] == {}
+    assert set(out["rows"]) == {"fused", "resident", "plain(10/call)"}
+    assert out["rows"]["plain(10/call)"]["sweeps_per_call"] == 10
+    assert all(r["flips_per_s"] > 0 for r in out["rows"].values())
+
+
+def test_kernel_bench_check_gives_moments():
+    cpu = torch.device("cpu")
+    step, _, dtype = kernel_bench.steps("resident", torch.float32, 4, cpu)["resident"]
+    c = kernel_bench.moments(step, dtype, cpu, size=16, T=3.0, burn_in=20, n_samples=40)
+    assert 0.0 <= c["abs_m"] < 0.5 and -2.0 < c["e"] < -0.5
+    assert np.isfinite([c["se_abs_m"], c["se_e"]]).all()
+
+
+@pytest.mark.parametrize("main", [
+    lambda: bench.main(["--size", "64", "--sweeps", "2", "--ea-sweeps", "2", "--calls", "1",
+                        "--trials", "1"]),
+    lambda: kernel_bench.main(["all", "--size", "64", "--sweeps", "2", "--iters", "1"]),
+    lambda: kernel_decomposition.main(["--size", "64", "--sweeps", "2"]),
+])
+def test_tools_without_a_card_raise(monkeypatch, main):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigurationError, match="CUDA is not available"):
+        main()
+
+
+def test_kernel_decomposition_on_the_cpu_times_every_variant(capsys):
+    assert kernel_decomposition.main(["--device", "cpu", "--size", "64", "--sweeps", "3"]) == 0
+    out = _last_json(capsys)
+    assert out["device"] == "cpu"
+    assert set(out["ms_per_sweep"]) == set(kernel_decomposition.VARIANTS)
+    shares = out["share_of_baseline"]
+    assert set(shares) == set(kernel_decomposition.PARTS)
+    assert sum(shares.values()) == pytest.approx(1.0)
+
+
+def test_importing_the_tools_pulls_in_no_jax_or_triton_and_builds_nothing():
+    code = (
+        "import json, sys\n"
+        "import tsu_tpu_torch.tools.bench, tsu_tpu_torch.tools.kernel_bench\n"
+        "import tsu_tpu_torch.tools.kernel_decomposition, tsu_tpu_torch.tools.profile_paths\n"
+        "import tsu_tpu_torch.tools.timing\n"
+        "from tsu_tpu_torch.ops import _build\n"
+        "libs = (_build.fused_sweep_library, _build.bond_sweep_library,\n"
+        "        _build.resident_sweep_library)\n"
+        "print(json.dumps({'jax': 'jax' in sys.modules, 'triton': 'triton' in sys.modules,\n"
+        "                  'tsu_tpu': 'tsu_tpu' in sys.modules,\n"
+        "                  'built': sum(f.cache_info().currsize for f in libs)}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.splitlines()[-1]) == {
+        "jax": False, "triton": False, "tsu_tpu": False, "built": 0}

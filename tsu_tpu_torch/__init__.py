@@ -3,8 +3,10 @@
 The port grows slice by slice beside the JAX package (see ROADMAP.md). It
 imports torch, numpy and scipy, never JAX and never ``tsu_tpu``. Its hot
 loops, the fused checkerboard sweep of one lattice and of a batch of
-lattices and the bond half-sweep of one lattice and of a batch of replicas,
-are CUDA kernels for Hopper built at first use.
+lattices, the bond half-sweep of one lattice and of a batch of replicas, and
+the resident multi-sweep kernel (S sweeps in one launch), are CUDA kernels
+for Hopper built at first use. Entry points run on the card unless the
+caller passes ``device="cpu"``, which runs the plain PyTorch versions.
 """
 
 from tsu_tpu_torch.config import (
@@ -14,6 +16,7 @@ from tsu_tpu_torch.config import (
     TSUError,
 )
 from tsu_tpu_torch.models.ising import IsingGrid, demonstrate_phase_transition
+from tsu_tpu_torch.ops.checkerboard_resident import resident_anneal, resident_sweeps
 from tsu_tpu_torch.samplers import (
     anneal_spin_glass,
     build_tempering_ladder,
@@ -32,4 +35,6 @@ __all__ = [
     "demonstrate_phase_transition",
     "parallel_tempering_bonds",
     "pt_ground_state_search",
+    "resident_anneal",
+    "resident_sweeps",
 ]

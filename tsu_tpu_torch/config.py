@@ -52,9 +52,14 @@ class IsingConfig:
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device (default: torch.get_default_device());
-    raises if it names a CUDA device that this process cannot use."""
-    device = torch.device(device) if device is not None else torch.get_default_device()
+    """``device`` as a torch.device. The default is the card,
+    ``torch.device("cuda")``: the entry points run their kernels unless the
+    caller asks for the plain path with ``device="cpu"``. Raises
+    ``ConfigurationError`` if the device is a CUDA device that this process
+    cannot use, the default included; there is no fall-back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise ConfigurationError(f"device {device} requested but CUDA is not available")
+        raise ConfigurationError(
+            f"device {device} requested but CUDA is not available; pass device='cpu' "
+            "for the plain PyTorch path")
     return device

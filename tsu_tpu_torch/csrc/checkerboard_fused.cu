@@ -41,6 +41,17 @@
 // shared-memory work, not HBM, bounds this first version, and the batched
 // kernel (16 x 1024^2 is the same work) has the same bound. Plane offsets are
 // size_t: B * R * C2 passes 2^31 at 256 lattices of 4096^2.
+//
+// Cost decomposition. decomposition_kernel replaces the variants of
+// make_kernel(mode) in scripts/kernel_decomposition.py, which time the TPU
+// kernel with parts taken out. Here they are K1's tile body under a Mode
+// template parameter (FULL, the default, is K1 itself): the same grid, tiles
+// and Philox keys, with the select chain and second colour (NOMATH), then
+// the staged black and its reads (PRNG_GROUPED), then the halo redraws and
+// the shared-memory staging (PRNG_ONLY) removed. Their times, beside K1's,
+// attribute K1's time to those parts: what ncu would say, on a machine where
+// ncu does not run. Each still writes both planes (~2 B/site/plane), and
+// NOMATH reads black too, so device memory sets the same floor as for K1.
 
 #include "tsu_common.cuh"
 
@@ -64,8 +75,49 @@ __device__ __forceinline__ int wrap_or_out(int i, int n, int periodic) {
   return i < 0 ? i + n : i;
 }
 
-// One sweep of the tile (blockIdx.y, blockIdx.x) of one lattice.
+// What a tile computes. FULL is the heat-bath sweep (K1, K2). The others are
+// the cost-decomposition variants of scripts/kernel_decomposition.py:41
+// (make_kernel), each K1 with parts taken out, same tiles and keying:
+//   PRNG_ONLY    one Philox word per tile site, red = lo16 < 32768, black =
+//                hi16 < 32768; nothing is read;
+//   PRNG_GROUPED K1's whole draw pattern, the words it redraws for its red
+//                halo included, thresholded at 32768; nothing is read (the
+//                reference's 8-row-group seeding has no GPU counterpart, so
+//                its port isolates the halo redraws instead);
+//   NOMATH       the whole draw pattern and the staged black's vertical reads:
+//                red = lo16 < (up + centre + down) * 1000 + 32768, black_out =
+//                red_out; no horizontal partner, table or second colour.
+enum Mode { FULL = 0, PRNG_ONLY = 1, PRNG_GROUPED = 2, NOMATH = 3 };
+
+// PRNG_ONLY: each thread draws quads of tile sites and writes both planes.
 template <typename T>
+__device__ __forceinline__ void prng_only_tile(
+    T* __restrict__ red_out, T* __restrict__ black_out, const int* __restrict__ uniforms,
+    int R, int C2, uint32_t k0, uint32_t k1) {
+  const int r0 = blockIdx.y * TR;
+  const int c0 = blockIdx.x * TC;
+  const size_t plane = (size_t)R * C2;
+  for (int idx = threadIdx.x; idx < TR * (TC / 4); idx += NT) {
+    const int gr = r0 + idx / (TC / 4), gc0 = c0 + 4 * (idx % (TC / 4));
+    if (gr >= R || gc0 >= C2) continue;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (uniforms == nullptr)
+      w = philox4x32_10(make_uint4((uint32_t)gr, (uint32_t)(gc0 >> 2), 0u, 0u), k0, k1);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (gc0 + t >= C2) break;
+      const size_t o = (size_t)gr * C2 + gc0 + t;
+      const int lo = uniforms != nullptr ? uniforms[o] : (int)(pick(w, t) & 0xFFFFu);
+      const int hi = uniforms != nullptr ? uniforms[plane + o] : (int)(pick(w, t) >> 16);
+      red_out[o] = from_f32<T>(lo < 32768 ? 1.0f : -1.0f);
+      black_out[o] = from_f32<T>(hi < 32768 ? 1.0f : -1.0f);
+    }
+  }
+}
+
+// One sweep of the tile (blockIdx.y, blockIdx.x) of one lattice; MODE FULL
+// is the heat-bath sweep, PRNG_GROUPED and NOMATH its ablations (above).
+template <typename T, int MODE = FULL>
 __device__ __forceinline__ void sweep_tile(
     const T* __restrict__ black_in, T* __restrict__ red_out, T* __restrict__ black_out,
     const int* __restrict__ table, const int* __restrict__ uniforms, int R, int C2,
@@ -80,13 +132,17 @@ __device__ __forceinline__ void sweep_tile(
   const int c0 = blockIdx.x * TC;
   const size_t plane = (size_t)R * C2;
 
-  if (tid < 9) st[tid] = table[tid];
-  for (int idx = tid; idx < SB_R * SB_C; idx += NT) {
-    const int i = idx / SB_C, j = idx % SB_C;
-    const int gr = wrap_or_out(r0 - 2 + i, R, periodic);
-    const int gc = wrap_or_out(c0 - 2 + j, C2, periodic);
-    sb[i][j] = (gr >= 0 && gc >= 0)
-        ? (int8_t)__float2int_rn(to_f32(black_in[(size_t)gr * C2 + gc])) : (int8_t)0;
+  if constexpr (MODE == FULL) {
+    if (tid < 9) st[tid] = table[tid];
+  }
+  if constexpr (MODE != PRNG_GROUPED) {
+    for (int idx = tid; idx < SB_R * SB_C; idx += NT) {
+      const int i = idx / SB_C, j = idx % SB_C;
+      const int gr = wrap_or_out(r0 - 2 + i, R, periodic);
+      const int gc = wrap_or_out(c0 - 2 + j, C2, periodic);
+      sb[i][j] = (gr >= 0 && gc >= 0)
+          ? (int8_t)__float2int_rn(to_f32(black_in[(size_t)gr * C2 + gc])) : (int8_t)0;
+    }
   }
   __syncthreads();
 
@@ -115,11 +171,19 @@ __device__ __forceinline__ void sweep_tile(
           const uint32_t word = quad ? pick(w, t) : site_word(gr, gc, k0, k1);
           u_red = (int)(word & 0xFFFFu);
           const int bi = i - 1, bj = j - 1;
-          if (bi >= 0 && bi < TR && bj >= 0 && bj < TC) sub[bi][bj] = (uint16_t)(word >> 16);
+          if (MODE != NOMATH && bi >= 0 && bi < TR && bj >= 0 && bj < TC)
+            sub[bi][bj] = (uint16_t)(word >> 16);
         }
-        const int horiz = (gr & 1) ? sb[i + 1][j + 2] : sb[i + 1][j];
-        const int nbr = sb[i][j + 1] + sb[i + 2][j + 1] + sb[i + 1][j + 1] + horiz;
-        s = u_red < st[nbr + 4] ? 1 : -1;
+        if constexpr (MODE == FULL) {
+          const int horiz = (gr & 1) ? sb[i + 1][j + 2] : sb[i + 1][j];
+          const int nbr = sb[i][j + 1] + sb[i + 2][j + 1] + sb[i + 1][j + 1] + horiz;
+          s = u_red < st[nbr + 4] ? 1 : -1;
+        } else if constexpr (MODE == NOMATH) {
+          const int nbr = sb[i][j + 1] + sb[i + 1][j + 1] + sb[i + 2][j + 1];
+          s = u_red < nbr * 1000 + 32768 ? 1 : -1;
+        } else {
+          s = u_red < 32768 ? 1 : -1;
+        }
       }
       sr[i][j] = s;
     }
@@ -134,12 +198,19 @@ __device__ __forceinline__ void sweep_tile(
     const int gr = r0 + bi, gc = c0 + bj;
     if (gr >= R || gc >= C2) continue;
     const int i = bi + 1, j = bj + 1;
-    const int horiz = (gr & 1) ? sr[i][j - 1] : sr[i][j + 1];
-    const int nbr = sr[i - 1][j] + sr[i + 1][j] + sr[i][j] + horiz;
     const size_t o = (size_t)gr * C2 + gc;
-    const int u_black = uniforms != nullptr ? uniforms[plane + o] : (int)sub[bi][bj];
     red_out[o] = from_f32<T>((float)sr[i][j]);
-    black_out[o] = from_f32<T>(u_black < st[nbr + 4] ? 1.0f : -1.0f);
+    if constexpr (MODE == FULL) {
+      const int horiz = (gr & 1) ? sr[i][j - 1] : sr[i][j + 1];
+      const int nbr = sr[i - 1][j] + sr[i + 1][j] + sr[i][j] + horiz;
+      const int u_black = uniforms != nullptr ? uniforms[plane + o] : (int)sub[bi][bj];
+      black_out[o] = from_f32<T>(u_black < st[nbr + 4] ? 1.0f : -1.0f);
+    } else if constexpr (MODE == NOMATH) {
+      black_out[o] = from_f32<T>((float)sr[i][j]);
+    } else {
+      const int u_black = uniforms != nullptr ? uniforms[plane + o] : (int)sub[bi][bj];
+      black_out[o] = from_f32<T>(u_black < 32768 ? 1.0f : -1.0f);
+    }
   }
 }
 
@@ -163,6 +234,44 @@ __global__ void __launch_bounds__(NT) fused_sweep_batched_kernel(
   sweep_tile<T>(blacks_in + b * plane, reds_out + b * plane, blacks_out + b * plane,
                 tables + 9 * b, uniforms == nullptr ? nullptr : uniforms + 2 * b * plane,
                 R, C2, periodic, keys[2 * b], keys[2 * b + 1]);
+}
+
+// K1 with parts taken out (Mode), on K1's grid and keys.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(NT) decomposition_kernel(
+    const T* __restrict__ black_in, T* __restrict__ red_out, T* __restrict__ black_out,
+    const int* __restrict__ uniforms, int R, int C2, int periodic, uint32_t k0, uint32_t k1) {
+  if constexpr (MODE == PRNG_ONLY) {
+    prng_only_tile<T>(red_out, black_out, uniforms, R, C2, k0, k1);
+  } else {
+    sweep_tile<T, MODE>(black_in, red_out, black_out, nullptr, uniforms, R, C2, periodic, k0, k1);
+  }
+}
+
+template <typename T>
+int launch_decomposition(int mode, const void* black_in, void* red_out, void* black_out,
+                         const void* uniforms, int R, int C2, int periodic, uint32_t k0,
+                         uint32_t k1, cudaStream_t s) {
+  const dim3 grid((C2 + TC - 1) / TC, (R + TR - 1) / TR);
+  const T* b = (const T*)black_in;
+  T* ro = (T*)red_out;
+  T* bo = (T*)black_out;
+  const int* u = (const int*)uniforms;
+  switch (mode) {
+    case PRNG_ONLY:
+      decomposition_kernel<T, PRNG_ONLY><<<grid, NT, 0, s>>>(b, ro, bo, u, R, C2, periodic, k0, k1);
+      break;
+    case PRNG_GROUPED:
+      decomposition_kernel<T, PRNG_GROUPED><<<grid, NT, 0, s>>>(b, ro, bo, u, R, C2, periodic, k0,
+                                                                 k1);
+      break;
+    case NOMATH:
+      decomposition_kernel<T, NOMATH><<<grid, NT, 0, s>>>(b, ro, bo, u, R, C2, periodic, k0, k1);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -210,4 +319,21 @@ extern "C" int tsu_fused_sweep_batched(const void* blacks_in, void* reds_out, vo
         (const uint32_t*)keys, (const int*)uniforms, R, C2, periodic);
   }
   return (int)cudaGetLastError();
+}
+
+// One decomposition variant of the sweep on `stream`: mode 1 PRNG_ONLY, 2
+// PRNG_GROUPED, 3 NOMATH (see Mode). Operands as tsu_fused_sweep's, without
+// a table; uniforms is null or (2, R, C2) int32 in [0, 2^16) standing for the
+// lo16 and hi16 halves of the words. Returns cudaGetLastError() after the
+// launch.
+extern "C" int tsu_decomposition_sweep(int mode, const void* black_in, void* red_out,
+                                       void* black_out, const void* uniforms, int R, int C2,
+                                       int periodic, unsigned int k0, unsigned int k1,
+                                       int is_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_decomposition<__nv_bfloat16>(mode, black_in, red_out, black_out, uniforms, R,
+                                               C2, periodic, k0, k1, s);
+  return launch_decomposition<float>(mode, black_in, red_out, black_out, uniforms, R, C2,
+                                     periodic, k0, k1, s);
 }

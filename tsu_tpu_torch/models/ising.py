@@ -38,7 +38,7 @@ def _not_ported(what: str, slice_: str):
 
 class IsingGrid:
     """2-D nearest-neighbour grid on ``device`` (default
-    ``torch.get_default_device()``): uniform coupling, sampled by the fused
+    the card, ``"cuda"``): uniform coupling, sampled by the fused
     checkerboard sweep, or per-bond couplings ``bonds=(Jh, Jv)``, sampled by
     the bond half-sweep kernel. ``Jh[r, c]`` couples (r, c)-(r, c+1) and
     ``Jv[r, c]`` couples (r, c)-(r+1, c); the wrap entries count only when

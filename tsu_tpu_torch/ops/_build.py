@@ -71,6 +71,21 @@ def fused_sweep_library() -> ctypes.CDLL:
     lib.tsu_fused_sweep.restype = i
     lib.tsu_fused_sweep_batched.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tsu_fused_sweep_batched.restype = i
+    lib.tsu_decomposition_sweep.argtypes = [i, p, p, p, p, i, i, i, u, u, i, p]
+    lib.tsu_decomposition_sweep.restype = i
+    return lib
+
+
+@functools.cache
+def resident_sweep_library() -> ctypes.CDLL:
+    """The resident multi-sweep kernel library (one cooperative launch runs
+    S sweeps), built and loaded once per process."""
+    lib = ctypes.CDLL(str(library_path("checkerboard_resident",
+                                       ("checkerboard_resident.cu",))))
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.tsu_resident_sweeps.argtypes = [p, p, p, i, p, i, i, i, i, u, i,
+                                        ctypes.POINTER(ctypes.c_int), p]
+    lib.tsu_resident_sweeps.restype = i
     return lib
 
 

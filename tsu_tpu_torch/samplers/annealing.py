@@ -56,7 +56,7 @@ def anneal_lattice(seed, shape, *, J: float = 1.0, field: float = 0.0,
                    n_chains: int = 1, periodic: bool = True,
                    track_every: int = 10, device=None):
     """Anneal ``n_chains`` (R, C) lattices on ``device`` (default
-    ``torch.get_default_device()``); returns (best_state (R, C) float32
+    the card, ``"cuda"``); returns (best_state (R, C) float32
     tensor on that device, best_energy float) over all chains.
 
     ``seed``: an int or a CPU ``torch.Generator``; the initial lattices and
@@ -125,7 +125,7 @@ def anneal_spin_glass(seed, Jh, Jv, *, field: float = 0.0, T_initial: float = 3.
     """Ground-state search on a lattice with per-bond couplings (the ±J
     Edwards-Anderson spin glass): annealed sweeps of the bond half-sweep
     kernel over a per-sweep schedule, best state over ``n_restarts``
-    anneals on ``device`` (default ``torch.get_default_device()``). Returns
+    anneals on ``device`` (default the card, ``"cuda"``). Returns
     (best_state (R, C) float32 numpy array, best_energy float).
 
     ``seed``: an int or a CPU ``torch.Generator``; each restart draws its

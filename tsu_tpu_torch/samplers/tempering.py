@@ -131,7 +131,7 @@ def parallel_tempering_lattice(seed, shape, *, temperatures, J: float = 1.0,
                                n_burnin: int = 100, periodic: bool = True,
                                device=None):
     """Replica exchange over checkerboard lattice sweeps on ``device``
-    (default ``torch.get_default_device()``).
+    (default the card, ``"cuda"``).
 
     ``seed``: an int or a CPU ``torch.Generator``. ``temperatures``: (R,)
     rung temperatures, slot 0 the coldest. Each round sweeps every replica
@@ -215,7 +215,7 @@ def parallel_tempering_bonds(seed, Jh, Jv, *, temperatures, field: float = 0.0,
                              n_sweeps: int = 1, n_burnin: int = 100, periodic: bool = True,
                              device=None):
     """Replica exchange over one bond realization (per-bond couplings) on
-    ``device`` (default ``torch.get_default_device()``).
+    ``device`` (default the card, ``"cuda"``).
 
     Every rung sweeps the same bonds at its own temperature (sorted
     ascending, slot 0 the coldest), all rungs in one batched bond kernel

@@ -344,7 +344,7 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
                            checkpoint_path=None, checkpoint_every: int = 1,
                            resume: bool = False, device=None) -> Dict:
     """Parallel-tempering ground-state search over one bond realization on
-    ``device`` (default ``torch.get_default_device()``).
+    ``device`` (default the card, ``"cuda"``).
 
     ``n_copies`` ladders run side by side in one kernel batch (B =
     n_copies * n_rungs replicas), each swapping within itself. With two or

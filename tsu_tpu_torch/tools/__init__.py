@@ -1,1 +1,6 @@
-"""Measurement tools of the port, run as scripts on a machine with a card."""
+"""Measurement tools of the port, run as modules on a machine with a card:
+``python3 -m tsu_tpu_torch.tools.<name>``. Importing this package imports
+none of them."""
+
+__all__ = ["bench", "kernel_bench", "kernel_decomposition", "profile_paths", "sass_count",
+           "timing"]

@@ -5,8 +5,8 @@ Run from the repository root on a machine with a card:
 
     python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR]
 
-Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9 and
-13), once to warm up and once under the profiler. For each path it prints
+Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13 and
+17), once to warm up and once under the profiler. For each path it prints
 the wall time, the device busy time and idle share, the count and device
 time of the port's kernels, the host's kernel launches and their host time,
 and the operations with the most device time. Busy time sums only the
@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -31,8 +30,12 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch import IsingGrid, demonstrate_phase_transition
-from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps_keyed, sigmoid_table16
+from tsu_tpu_torch.ops.checkerboard import split_checkerboard
+from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
+from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps, fused_sweeps_keyed, sigmoid_table16
 from tsu_tpu_torch.rng import sweep_keys
+from tsu_tpu_torch.tools.bench import ea_codes
+from tsu_tpu_torch.tools.timing import card
 from tsu_tpu_torch.samplers import (
     build_tempering_ladder,
     parallel_tempering_bonds,
@@ -64,6 +67,8 @@ def paths(dev) -> dict:
     gauss = rng.normal(size=(2, *GRID)).astype(np.float32)
     pm1 = rng.choice([-1.0, 1.0], (2, *GRID)).astype(np.float32)
     pm1_pt = rng.choice([-1.0, 1.0], (2, *PT[1:])).astype(np.float32)
+    red, black = (x.to(dev) for x in split_checkerboard(torch.ones(GRID, dtype=torch.bfloat16)))
+    codes = ea_codes(GRID[0], dev)
     return {
         "sample": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev).sample(
             n_samples=4, temperature=2.269),
@@ -83,6 +88,12 @@ def paths(dev) -> dict:
             0, *pm1_pt, temperatures=np.geomspace(1.2, 2.0, PT[0]), n_samples=200,
             swap_interval=10, n_burnin=100, device=dev),
         "ladder + search": lambda: _ladder_search(*pm1_pt, dev),
+        # One call of each row of tools.bench (chip_smoke phase 17). The
+        # resident kernel's cooperative launch is left out: in a profiler
+        # window that held one, key_averages() listed no device event at all.
+        "bench K1 call": lambda: fused_sweeps(1, red, black, 2.269, 5000),
+        "bench EA call": lambda: checkerboard_sweeps_bonds_kernel(
+            1, red, black, codes, 1.2, 1000, discrete=True, pure=True),
     }
 
 
@@ -138,12 +149,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.splitlines()[0].strip()
-    print(card, flush=True)
+    card_name = card()
+    print(card_name, flush=True)
 
-    result, tables = {"card": card, "paths": {}}, []
+    result, tables = {"card": card_name, "paths": {}}, []
     for name, fn in paths(dev).items():
         r = result["paths"][name] = profile_path(fn, tables)
         kern = ", ".join(f"{k} {v['count']} x {v['ms'] / v['count'] * 1e3:.1f} us"

@@ -1,0 +1,165 @@
+"""Count the SASS instructions on the hot paths of the port's kernels.
+
+Run from the repository root on a machine with the CUDA toolkit:
+
+    python3 -m tsu_tpu_torch.tools.sass_count [--sass FILE ...] [--out DIR]
+
+With no ``--sass`` it builds the three kernel libraries (``ops/_build.py``)
+and disassembles them with ``cuobjdump -sass``; ``--sass`` reads such dumps
+instead. For every kernel function it prints its instruction count and, for
+each innermost loop (a backward branch and the code it jumps over), the
+address range, the instructions in the range, and the longest path through
+one iteration of the body: the most instructions a thread can issue from the
+loop head to the backward branch, every basic block counted once and the
+back edge left out. Beside each count is the part that issues to the int32
+pipe (IMAD, IADD3, LOP3, SHF, LEA, ISETP, SEL, PRMT and the other integer
+opcodes; uniform-datapath U* instructions, loads, stores, conversions and
+control are not counted there). A loop-free kernel reports its longest path
+from entry to exit.
+
+These are static counts of the compiled code: the longest path is the path
+a thread takes when every optional step runs (a whole group of four sites,
+every branch of the site loop), so an instruction-per-site figure derived
+from them is an estimate of the work the card issues, not a measurement.
+``--out DIR`` writes the dumps there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+_FUNC = re.compile(r"Function : (\S+)")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+_TARGET = re.compile(r"0x([0-9a-f]+)")
+_INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
+            "IMNMX", "IABS", "SEL", "PRMT", "VIADD", "VIMNMX", "BMSK", "SGXT", "BREV", "FLO",
+            "POPC", "ICMP", "ISCADD", "IDP", "IMUL")
+LIBRARIES = ("checkerboard_fused", "checkerboard_bonds", "checkerboard_resident")
+
+
+def is_int32(op: str) -> bool:
+    """True for an opcode that issues to the int32 pipe."""
+    return op.split(".")[0] in _INT_OPS
+
+
+def parse(text: str) -> dict:
+    """{function: [(address, predicated, opcode, operands), ...]} of a
+    cuobjdump -sass listing."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _INSN.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4)))
+    return funcs
+
+
+def _target(op: str, args: str):
+    if not op.startswith("BRA"):
+        return None
+    found = _TARGET.findall(args)
+    return int(found[-1], 16) if found else None
+
+
+def longest_path(ins: list, lo: int, hi: int) -> tuple:
+    """(instructions, int32 instructions) on the longest path from address lo
+    to address hi (inclusive) through forward edges only."""
+    body = [x for x in ins if lo <= x[0] <= hi]
+    index = {x[0]: i for i, x in enumerate(body)}
+    best = [None] * (len(body) + 1)       # best[i]: longest path from body[i] to the end
+    best[len(body)] = (0, 0)
+    for i in range(len(body) - 1, -1, -1):
+        a, pred, op, args = body[i]
+        own = (1, int(is_int32(op)))
+        t = _target(op, args)
+        nexts = []
+        # A branch with a guard (@P) or a predicate operand, and BRA.DIV,
+        # may fall through; a bare BRA, EXIT or RET does not.
+        falls = pred or args.startswith(("P", "!P")) or op.startswith("BRA.DIV") or not (
+            op.startswith("BRA") or op in ("EXIT", "RET"))
+        if t is not None and t > a and t in index:
+            nexts.append(best[index[t]])
+        elif t is not None and t > hi:
+            nexts.append((0, 0))          # leaves the range: the path ends here
+        if falls:
+            nexts.append(best[i + 1])
+        tail = max(nexts) if nexts else (0, 0)
+        best[i] = (own[0] + tail[0], own[1] + tail[1])
+    return best[0] if body else (0, 0)
+
+
+def loops(ins: list) -> list:
+    """Innermost loops as (head, branch address): backward branches whose
+    range holds no other backward branch."""
+    back = [(t, a) for a, _, op, args in ins
+            if (t := _target(op, args)) is not None and t <= a]
+    return [(h, b) for h, b in back
+            if not any(h <= h2 and b2 <= b and (h2, b2) != (h, b) for h2, b2 in back)]
+
+
+def report(funcs: dict) -> dict:
+    out = {}
+    for name, ins in funcs.items():
+        if not ins:
+            continue
+        entry = {"instructions": len(ins),
+                 "int32": sum(is_int32(x[2]) for x in ins), "loops": []}
+        for head, branch in loops(ins):
+            n, n_int = longest_path(ins, head, branch)
+            entry["loops"].append({"range": [hex(head), hex(branch)],
+                                   "instructions": sum(head <= x[0] <= branch for x in ins),
+                                   "longest_path": n, "longest_path_int32": n_int})
+        if not entry["loops"]:
+            entry["longest_path"], entry["longest_path_int32"] = longest_path(
+                ins, ins[0][0], ins[-1][0])
+        out[name] = entry
+    return out
+
+
+def dump_libraries(out_dir=None) -> dict:
+    """Build the kernel libraries and disassemble them: {library: text}."""
+    from tsu_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dumps = {}
+    for lib in LIBRARIES:
+        path = _build.library_path(lib, (f"{lib}.cu",))
+        dumps[lib] = subprocess.run([tool, "-sass", str(path)], check=True, capture_output=True,
+                                    text=True).stdout
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            Path(out_dir, f"sass_{lib}.txt").write_text(dumps[lib])
+    return dumps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sass", nargs="*", help="cuobjdump -sass listings to read")
+    ap.add_argument("--out", help="directory for the listings")
+    args = ap.parse_args(argv)
+    dumps = ({Path(p).stem: Path(p).read_text() for p in args.sass} if args.sass
+             else dump_libraries(args.out))
+    for lib, text in dumps.items():
+        for name, r in report(parse(text)).items():
+            print(f"{lib} {name}: {r['instructions']} instructions ({r['int32']} int32)")
+            if "longest_path" in r:
+                print(f"    no loop; longest path {r['longest_path']} "
+                      f"({r['longest_path_int32']} int32)")
+            for lp in r["loops"]:
+                print(f"    loop {lp['range'][0]}-{lp['range'][1]}: {lp['instructions']} "
+                      f"instructions, longest path {lp['longest_path']} "
+                      f"({lp['longest_path_int32']} int32)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
