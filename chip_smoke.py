@@ -7,8 +7,8 @@ Run from the repository root:
 
 Phases, each of which raises on failure:
  1. print the card (nvidia-smi name and power limit), torch and CUDA versions,
-    and build the fused-sweep and the bond kernels from tsu_tpu_torch/csrc,
-    one nvcc per source, all at once;
+    and build the fused-sweep, the bond, the resident and the half-sweep
+    kernels from tsu_tpu_torch/csrc, one nvcc per source, all at once;
  2. kernel against its plain PyTorch version with injected uniforms, bit for
     bit: 3 sweeps over a temperature schedule at 4096^2 bf16 periodic and at
     1002x1000 f32 open;
@@ -73,10 +73,34 @@ Phases, each of which raises on failure:
     schedule from T = 5 to 0.05, with launch counts (one K6 launch per
     resident_sweeps call, one K7 launch per anneal);
 18. K6 and K7 ms per sweep at 4096^2 bf16 (a 500-sweep call / 500) beside
-    K1's and the plain versions', and each K8 variant's ms per sweep.
+    K1's and the plain versions', and each K8 variant's ms per sweep;
+19. the exact-sigmoid half-sweep (K3) against its plain version, half-sweep
+    by half-sweep, equal outside the stated band (its size printed), injected
+    24-bit uniforms and Philox: 4096^2 f32 periodic, 4096^2 bf16, 1002x1000
+    f32 open, and a 2048x2048 shard (rows 2048.., compact columns 1026..)
+    with random row and column halos; K1's shard mode against its plain
+    version, bit for bit, on 1024x4096 shards (interior periodic, the top and
+    bottom of an open lattice), injected and Philox;
+20. sharded == unsharded at 4096^2, bit for bit at one seed: 4 row shards
+    (K1 in shard mode, bf16) and 2 x 2 shards (K3, f32) against the one-shard
+    run, periodic and open;
+21. sharded statistics: 4x4 through sharded_lattice_sample on 2 row shards
+    (K1) and on 2 x 2 shards (K3) against exact enumeration, and 512^2 at
+    T = 2.0 on 2 x 2 shards against Onsager's magnetization;
+22. this slice's paths at full width, each from zeroed counts, with its wall
+    and launch counts: IsingGrid(4096^2).sample_observables(4) on
+    make_mesh(rows=4, devices=[cuda:0] * 4) (560 K1 launches) and on rows=2,
+    cols=2 (1,120 K3 launches), and parallel_tempering_replica_sharded with
+    64 rungs of 256^2 over replica=4 (1,200 K2 launches); each at 16x16
+    equal on cuda and on cpu;
+23. K3 ms per 4096^2 half-sweep (f32 and bf16) from a CUDA graph beside its
+    plain version; K1's shard mode ms per sweep of a 1024x4096 bf16 shard
+    from a CUDA graph; the host time of one sharded sweep at 4096^2 on one
+    card, halo exchange included, on each mesh.
 
 The last two lines are a JSON line per kernel (its time, launches, error,
-plain version's time and its bound: the bytes it must move over 3.35 TB/s)
+plain version's time and its bound: the bytes it must move over 3.35 TB/s;
+the eight TPU kernels K1-K8 and their CUDA counterparts)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
@@ -99,6 +123,7 @@ from tsu_tpu_torch.ops.checkerboard import (
     merge_checkerboard,
     plane_energy_batch,
     split_checkerboard,
+    wrap_halos,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import (
     fused_sweep,
@@ -121,6 +146,11 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
     continuous_band,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
+from tsu_tpu_torch.ops.checkerboard_kernel import (
+    halfsweep,
+    halfsweep_band,
+    halfsweep_reference,
+)
 from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_anneal,
     resident_anneal_tables,
@@ -135,6 +165,12 @@ from tsu_tpu_torch.ops.kernel_decomposition import (
     decomposition_sweep,
     decomposition_sweep_reference,
 )
+from tsu_tpu_torch.parallel import (
+    make_mesh,
+    parallel_tempering_replica_sharded,
+    sharded_checkerboard_sweeps,
+    sharded_lattice_sample,
+)
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.samplers import (
     build_tempering_ladder,
@@ -144,7 +180,7 @@ from tsu_tpu_torch.samplers import (
     pt_ground_state_search,
 )
 from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition
-from tsu_tpu_torch.tools.timing import card, graph_ms
+from tsu_tpu_torch.tools.timing import card, graph_ms, host_ms
 from tsu_tpu_torch.tools.timing import event_ms as time_sweeps
 
 MAIN_SHAPE = (4096, 4096)
@@ -157,6 +193,7 @@ EA_GS_DENSITY = -1.4015                  # 2-D +-J EA ground-state energy per si
 RESIDENT_SWEEPS = 500                    # sweeps per timed resident call (kernel_bench's depth)
 BENCH = dict(sweeps=5000, ea_sweeps=1000, calls=3, n_trials=3)   # tools.bench's defaults
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory rate
+SHARD = (1024, 4096)                     # one of 4 row shards of MAIN_SHAPE
 
 
 def log(msg: str):
@@ -164,8 +201,8 @@ def log(msg: str):
 
 
 KERNELS = (fused_sweep, fused_sweep_batched, bond_halfsweep, bond_halfsweep_batched,
-           resident_sweeps_table, resident_anneal_tables, decomposition_sweep)
-NAMES = ("K1", "K2", "K4", "K5", "K6", "K7", "K8")
+           resident_sweeps_table, resident_anneal_tables, decomposition_sweep, halfsweep)
+NAMES = ("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K3")
 
 
 def reset_counts():
@@ -174,7 +211,7 @@ def reset_counts():
 
 
 def counts():
-    """Launches of K1, K2, K4, K5, K6, K7 and K8 since the last reset."""
+    """Launches of K1, K2, K4, K5, K6, K7, K8 and K3 since the last reset."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -420,8 +457,9 @@ def phase_batched_statistics(dev):
 
 def run_path(what, fn, want):
     """Run one path from zeroed counts; raise unless the launches of
-    (K1, K2, K4, K5, K6, K7, K8) are ``want`` (a function of the output, or
-    a tuple of the leading counts, the rest zero). Returns (output, counts)."""
+    (K1, K2, K4, K5, K6, K7, K8, K3) are ``want`` (a function of the output,
+    or a tuple of the leading counts, the rest zero). Returns (output,
+    counts)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1108,6 +1146,261 @@ def phase_resident_timing(dev, name, k1_ms, k1_plain_ms, dec):
     return t
 
 
+def compare_halfsweeps(other, steps, halos=None, uniforms=None, **where):
+    """K3 and its plain version half-sweep by half-sweep, each step (colour,
+    key) starting from the kernel's last output; the halo rows are the
+    plane's wrap rows (periodic), zeros (open) or ``halos`` (up, down, left,
+    right) of a shard. Raise unless equal outside CONTINUOUS_BAND. Returns
+    (max abs difference outside the band, sites in the band, of them the
+    sites that differ)."""
+    err, n_band, n_differ = 0.0, 0, 0
+    for i, (color, key) in enumerate(steps):
+        if halos is None:
+            up, down = wrap_halos(other, where["periodic"])
+            cols = {}
+        else:
+            up, down, left, right = halos
+            cols = dict(left_col=left, right_col=right)
+        kw = dict(update_red=color == 0, key=key, uniforms=None if uniforms is None else uniforms[i],
+                  temperature=2.269, J=1.0, field=0.1, **cols, **where)
+        got = halfsweep(other, up, down, **kw)
+        want = halfsweep_reference(other, up, down, **kw)
+        band = halfsweep_band(other, up, down, **kw)
+        n_band += int(band.sum())
+        n_differ += int(((got != want) & band).sum())
+        e = float(((got.float() - want.float()).abs() * ~band).max())
+        if e:
+            raise AssertionError(
+                f"K3 != plain at half-sweep {i}: {int(((got != want) & ~band).sum())} sites differ "
+                f"outside the band (shape {tuple(other.shape)}, {other.dtype}, {where}, "
+                f"injected={uniforms is not None})")
+        err = max(err, e)
+        other = got
+    torch.cuda.synchronize()
+    return err, n_band, n_differ
+
+
+def phase_halfsweep_exact(dev, gen, cgen):
+    """Phase 19; returns (K3 max abs err, band sites, band sites that
+    differ, K1 shard-mode max abs err)."""
+    steps = [(c, bond_key(90 + k, c, k)) for k in range(2) for c in (0, 1)]
+    err3 = n_band = n_differ = 0
+    for shape, dtype, periodic in ((MAIN_SHAPE, torch.float32, True),
+                                   (MAIN_SHAPE, torch.bfloat16, True),
+                                   ((1002, 1000), torch.float32, False)):
+        other = random_black(gen, shape, dtype, dev)
+        U = torch.randint(0, 1 << 24, (4, shape[0], shape[1] // 2), generator=cgen, device=dev,
+                          dtype=torch.int32)
+        for u in (U, None):
+            e, b, d = compare_halfsweeps(other, steps, uniforms=u, periodic=periodic)
+            err3, n_band, n_differ = max(err3, e), n_band + b, n_differ + d
+        del U
+        log(f"phase 19: K3 {shape} {dtype} periodic={periodic}: kernel == plain outside the "
+            "band over 2 sweeps, injected and Philox")
+    R, C2 = MAIN_SHAPE[0] // 2, MAIN_SHAPE[1] // 4   # a shard of a 2 x 2 mesh: 2048x2048
+    row0, col0 = R, C2 + 2                  # the columns start inside a group of four
+    other = random_black(gen, (R, 2 * C2), torch.float32, dev)
+    halos = [random_black(gen, (2, 2 * C2), torch.float32, dev)[:1].contiguous()
+             for _ in range(2)] + [random_black(gen, (R, 2), torch.float32, dev) for _ in range(2)]
+    U = torch.randint(0, 1 << 24, (4, R, C2), generator=cgen, device=dev, dtype=torch.int32)
+    for u in (U, None):
+        e, b, d = compare_halfsweeps(other, steps, halos, u, periodic=True, row0=row0, col0=col0)
+        err3, n_band, n_differ = max(err3, e), n_band + b, n_differ + d
+    del U
+    log(f"phase 19: K3 shard ({R}, {C2}) f32 at rows {row0}.., compact columns {col0}.. with row "
+        "and column halos: kernel == plain outside the band over 2 sweeps, injected and Philox")
+    log(f"phase 19: K3 {n_band} site updates in the band |u - p| <= {CONTINUOUS_BAND}, "
+        f"{n_differ} of them differ")
+
+    err1 = 0.0
+    R, C2 = SHARD[0], SHARD[1] // 2
+    table = sigmoid_table16(1.0, 0.1, 2.269).to(dev)
+    for row0, periodic, dtype in ((R, True, torch.bfloat16), (0, False, torch.bfloat16),
+                                  (MAIN_SHAPE[0] - R, False, torch.float32)):
+        black = random_black(gen, SHARD, dtype, dev)
+        up2, down2 = (random_black(gen, (2, 2 * C2), dtype, dev) for _ in range(2))
+        top, bot = row0 == 0, row0 + R == MAIN_SHAPE[0]
+        if not periodic:
+            up2 = torch.zeros_like(up2) if top else up2
+            down2 = torch.zeros_like(down2) if bot else down2
+        U = torch.randint(0, 1 << 16, (2, R, C2), generator=cgen, device=dev, dtype=torch.int32)
+        UH = tuple(torch.randint(0, 1 << 16, (1, C2), generator=cgen, device=dev,
+                                 dtype=torch.int32) for _ in range(2))
+        for u, uh in ((U, UH), (None, None)):
+            kw = dict(seed=21, sweep=3, periodic=periodic, uniforms=u, up2=up2, down2=down2,
+                      shard_info=(row0, MAIN_SHAPE[0], top, bot), uniforms_halo=uh)
+            got = fused_sweep(black, table, **kw)
+            want = fused_sweep_reference(black, table, **kw)
+            for a, b in zip(got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K1 shard mode != plain: {int((a != b).sum())} sites "
+                                         f"differ (row0 {row0}, periodic={periodic}, "
+                                         f"injected={u is not None})")
+                err1 = max(err1, float((a.float() - b.float()).abs().max()))
+        torch.cuda.synchronize()
+        log(f"phase 19: K1 shard mode {SHARD} {dtype} at row {row0} of {MAIN_SHAPE[0]}, "
+            f"periodic={periodic}: kernel == plain, injected and Philox")
+    return err3, n_band, n_differ, err1
+
+
+def phase_sharded_exact(dev, gen):
+    """Phase 20: sharded runs at 4096^2 equal the one-shard runs bit for bit."""
+    lat = torch.where(torch.rand(MAIN_SHAPE, generator=gen) < 0.5, 1.0, -1.0)
+    one = make_mesh(devices=[dev])
+    for kernel, dtype, rows, cols in (("K1", torch.bfloat16, 4, 1), ("K3", torch.float32, 2, 2)):
+        red, black = (x.to(dev, dtype).contiguous() for x in split_checkerboard(lat))
+        for periodic in (True, False):
+            kw = dict(periodic=periodic, fused=kernel == "K1")
+            a = sharded_checkerboard_sweeps(one, 31, red, black, 2.269, 3, **kw)
+            b = sharded_checkerboard_sweeps(make_mesh(rows=rows, cols=cols, devices=[dev] * 4),
+                                            31, red, black, 2.269, 3,
+                                            col_axis="col" if cols > 1 else None, **kw)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{kernel} on {rows}x{cols} shards != one shard "
+                                     f"(periodic={periodic})")
+            log(f"phase 20: {kernel} {MAIN_SHAPE} {dtype} on {rows} x {cols} shards of one card "
+                f"== the one-shard run bit for bit over 3 sweeps, periodic={periodic}")
+    torch.cuda.synchronize()
+
+
+def phase_sharded_statistics(dev):
+    T = 2.5
+    m_x, e_x = exact_4x4(T)
+    for rows, cols in ((2, 1), (2, 2)):
+        out = sharded_lattice_sample(make_mesh(rows=rows, cols=cols, devices=[dev] * 4), 41,
+                                     torch.ones(4, 4), n_samples=3000, temperature=T,
+                                     n_burnin=100, n_sweeps=1,
+                                     col_axis="col" if cols > 1 else None)
+        m, se_m = batch_means(out["magnetization"].abs().numpy())
+        e, se_e = batch_means(out["energy"].numpy() / 16)
+        log(f"sharded 4x4 on {rows} x {cols} shards, T={T}: <|m|> {m:.5f} +- {se_m:.5f} (exact "
+            f"{m_x:.5f}); <e> {e:.5f} +- {se_e:.5f} (exact {e_x:.5f})")
+        if abs(m - m_x) > 4 * se_m or abs(e - e_x) > 4 * se_e:
+            raise AssertionError("sharded 4x4 moments differ from exact enumeration by more "
+                                 "than 4 SE")
+    T, L = 2.0, 512
+    onsager = (1.0 - np.sinh(2.0 / T) ** -4) ** 0.125
+    out = sharded_lattice_sample(make_mesh(rows=2, cols=2, devices=[dev] * 4), 42,
+                                 torch.ones(L, L), n_samples=40, temperature=T, n_burnin=200,
+                                 n_sweeps=5, col_axis="col")
+    m = float(out["magnetization"].abs().mean())
+    log(f"{L}^2 T={T} ordered start on 2 x 2 shards (K3): <|m|> {m:.5f} (Onsager {onsager:.5f})")
+    if abs(m - onsager) > 0.01:
+        raise AssertionError("sharded 512^2 magnetization differs from Onsager's by more than 0.01")
+
+
+def phase_sharded_paths(dev):
+    """Phase 22; returns the launches of K1, K2 and K3 on the paths."""
+    cfg = IsingConfig()
+    sweeps = cfg.n_burnin + 4 * cfg.n_sweeps
+    n = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    got = {}
+    for rows, cols, want in ((4, 1, (4 * sweeps,)), (2, 2, (0,) * 7 + (4 * 2 * sweeps,))):
+        mesh = make_mesh(rows=rows, cols=cols, devices=[dev] * 4)
+        grid = IsingGrid(MAIN_SHAPE, periodic=True, seed=0, device=dev)
+        obs, c = run_path(f"sample_observables(4) {MAIN_SHAPE} on {rows} x {cols} shards of one "
+                          "card", lambda: grid.sample_observables(4, temperature=2.269, mesh=mesh),
+                          want)
+        got[(rows, cols)] = c
+        e = obs["energy"] / n
+        log(f"sharded sample_observables {rows} x {cols}: m {obs['magnetization'].tolist()}, "
+            f"e/site {e.tolist()}")
+        if obs["energy"].shape != (4,) or not np.all(np.isfinite(e)) or not np.all(
+                (e > -2.0) & (e < -1.0)):
+            raise AssertionError("sharded observables out of range after 140 sweeps at T_c")
+
+    rungs = np.geomspace(1.8, 3.0, PT_RUNGS)
+    out, c = run_path(f"parallel_tempering_replica_sharded {PT_RUNGS} x {PT_SHAPE} over replica=4, "
+                      "300 rounds", lambda: parallel_tempering_replica_sharded(
+                          make_mesh(replica=4, devices=[dev] * 4), 0, PT_SHAPE, rungs,
+                          n_samples=200, swap_interval=10, n_burnin=100), (0, 4 * 300))
+    got["pt"] = c
+    by_rung = np.take_along_axis(out["energy"], np.argsort(out["rungs"], axis=1), axis=1).mean(0)
+    k = PT_RUNGS // 8
+    log(f"replica-sharded tempering: {out['swap_accepts']} swaps accepted (rate "
+        f"{out['swap_acceptance_rate']:.4f}); mean E of the {k} coldest rungs "
+        f"{by_rung[:k].mean()}, of the {k} hottest {by_rung[-k:].mean()}")
+    if (out["magnetization"].shape != (200, PT_RUNGS) or out["swap_accepts"] <= 0
+            or not by_rung[:k].mean() < by_rung[-k:].mean()):
+        raise AssertionError("replica-sharded tempering: shape, no swap, or cold rungs not below "
+                             "hot ones")
+
+    def grid_small(rows, cols):
+        def run(d):
+            out = IsingGrid((16, 16), periodic=True, seed=6, device=d,
+                            config=IsingConfig(n_burnin=10, n_sweeps=2)).sample_observables(
+                3, temperature=2.269, mesh=make_mesh(rows=rows, cols=cols, devices=[d] * 4))
+            return [out["magnetization"], out["energy"]]
+        return run
+    same_on_cpu("sharded sample_observables 4 x 1", grid_small(4, 1), dev)
+    same_on_cpu("sharded sample_observables 2 x 2", grid_small(2, 2), dev)
+    same_on_cpu("parallel_tempering_replica_sharded", lambda d: [
+        out[k] for out in [parallel_tempering_replica_sharded(
+            make_mesh(replica=4, devices=[d] * 4), 7, (16, 16), np.geomspace(1.8, 3.0, 8),
+            n_samples=6, swap_interval=2, n_burnin=4)] for k in ("magnetization", "energy",
+                                                                  "rungs")], dev)
+    return got[(4, 1)][0], got["pt"][1], got[(2, 2)][7]
+
+
+def phase_sharded_timing(dev, name):
+    """Phase 23; returns ms {K3 f32, K3 bf16, K3 plain, K1 shard, K1 shard
+    plain, host per sharded sweep on rows=4 and on 2 x 2}."""
+    gen = torch.Generator().manual_seed(61)
+    t = {}
+    for dtype, label in ((torch.float32, "K3"), (torch.bfloat16, "K3 bf16")):
+        other = random_black(gen, MAIN_SHAPE, dtype, dev)
+        up, down = wrap_halos(other, True)
+
+        def go(fn):
+            def run(n):
+                for k in range(n):
+                    fn(other, up, down, update_red=k % 2 == 0, temperature=2.269, key=(3, k))
+            return run
+        go(halfsweep)(4)
+        t[label] = graph_ms(go(halfsweep), 1000)
+        if dtype == torch.float32:
+            go(halfsweep_reference)(2)
+            t["K3 plain"] = time_sweeps(go(halfsweep_reference), 20)
+    R, C2 = SHARD[0], SHARD[1] // 2
+    black = random_black(gen, SHARD, torch.bfloat16, dev)
+    up2, down2 = (random_black(gen, (2, 2 * C2), torch.bfloat16, dev) for _ in range(2))
+    table = sigmoid_table16(1.0, 0.0, 2.269).to(dev)
+
+    def shard(fn):
+        def run(n):
+            for k in range(n):
+                fn(black, table, seed=5, sweep=k, up2=up2, down2=down2,
+                   shard_info=(SHARD[0], MAIN_SHAPE[0], False, False))
+        return run
+    shard(fused_sweep)(4)
+    t["K1 shard"] = graph_ms(shard(fused_sweep), 1000)
+    shard(fused_sweep_reference)(2)
+    t["K1 shard plain"] = time_sweeps(shard(fused_sweep_reference), 20)
+
+    lat = torch.where(torch.rand(MAIN_SHAPE, generator=gen) < 0.5, 1.0, -1.0)
+    for rows, cols, dtype in ((4, 1, torch.bfloat16), (2, 2, torch.float32)):
+        red, black = (x.to(dev, dtype).contiguous() for x in split_checkerboard(lat))
+        mesh = make_mesh(rows=rows, cols=cols, devices=[dev] * 4)
+
+        def run(n):
+            sharded_checkerboard_sweeps(mesh, 1, red, black, 2.269, n,
+                                        col_axis="col" if cols > 1 else None)
+            torch.cuda.synchronize()
+        run(2)
+        # The difference of two calls leaves out the scatter and the gather.
+        t[f"host {rows}x{cols}"] = (host_ms(run, 101) * 101 - host_ms(run, 1)) / 100
+    n = MAIN_SHAPE[0] * MAIN_SHAPE[1] // 2
+    log(f"timing on {name}: K3 {MAIN_SHAPE} f32 {t['K3']:.6f} ms/half-sweep ({n / t['K3'] * 1e3:.4e} "
+        f"site updates/s, a CUDA graph of 1000), bf16 {t['K3 bf16']:.6f}, plain f32 "
+        f"{t['K3 plain']:.6f} ms/half-sweep (20)")
+    log(f"timing on {name}: K1 shard mode {SHARD} bf16 {t['K1 shard']:.6f} ms/sweep (a CUDA graph "
+        f"of 1000), plain {t['K1 shard plain']:.6f} ms/sweep (20)")
+    log(f"timing on {name}: one sharded {MAIN_SHAPE} sweep on one card, host clock, halo exchange "
+        f"included: 4 x 1 shards (K1, bf16) {t['host 4x1']:.6f} ms, 2 x 2 shards (K3, f32) "
+        f"{t['host 2x2']:.6f} ms")
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1121,8 +1414,9 @@ def main() -> int:
     with ThreadPoolExecutor() as pool:
         list(pool.map(lambda build: build(), (_build.fused_sweep_library,
                                               _build.bond_sweep_library,
-                                              _build.resident_sweep_library)))
-    log(f"phase 1: built the fused-sweep, the bond and the resident kernels in "
+                                              _build.resident_sweep_library,
+                                              _build.halfsweep_library)))
+    log(f"phase 1: built the fused-sweep, the bond, the resident and the half-sweep kernels in "
         f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
@@ -1185,6 +1479,21 @@ def main() -> int:
     rt = phase_resident_timing(dev, name, ms, plain_ms, dec)
     log("phase 18: timed")
 
+    err3, n_band3, n_differ3, err1s = phase_halfsweep_exact(dev, gen, cgen)
+    log("phase 19: K3 == its plain version outside the band, K1's shard mode == its plain version")
+
+    phase_sharded_exact(dev, gen)
+    log("phase 20: sharded runs == the one-shard runs")
+
+    phase_sharded_statistics(dev)
+    log("phase 21: sharded statistics agree with the exact references")
+
+    launches1s, launches2s, launches3 = phase_sharded_paths(dev)
+    log("phase 22: the sharded paths ran through K1's shard mode, K3 and K2")
+
+    st = phase_sharded_timing(dev, name)
+    log("phase 23: timed")
+
     R, C2 = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2
     site = R * C2                                     # compact sites of one 4096^2 plane
     B, Rb, Cb = ENSEMBLE
@@ -1192,6 +1501,7 @@ def main() -> int:
     ladder_site = LADDER_BATCH * PT_SHAPE[0] * PT_SHAPE[1] // 2
     S = RESIDENT_SWEEPS
     fused = "tsu_tpu_torch/csrc/checkerboard_fused.cu"
+    shard_site = SHARD[0] * SHARD[1] // 2
     bonds = "tsu_tpu_torch/csrc/checkerboard_bonds.cu"
     resident = "tsu_tpu_torch/csrc/checkerboard_resident.cu"
 
@@ -1204,7 +1514,9 @@ def main() -> int:
                 **extra}
 
     # Bytes a unit of work must move: K1 and K2 read black and write red and
-    # black (2 B each at bf16) per sweep; K4 reads the other plane and a code
+    # black (2 B each at bf16) per sweep, K1's shard mode also its four halo
+    # rows; K3 reads the other plane and its two halo rows and writes its
+    # colour (4 B each at f32) per half-sweep; K4 reads the other plane and a code
     # byte and writes its colour per half-sweep, K5 the same with the codes
     # shared by the batch; K6 and K7 read and write both planes once per call
     # of S sweeps (per sweep: / S) and K7 reads a 9-entry table per sweep; a
@@ -1212,10 +1524,21 @@ def main() -> int:
     dec_bytes = {"prng_only": 2 * 2 * site, "prng_grouped": 2 * 2 * site,
                  "nomath": 3 * 2 * site}
     print(json.dumps({"kernels": [
-        entry("fused_sweep", fused, "tsu_tpu/ops/checkerboard_fused.py:136", launches, err, ms,
-              plain_ms, 3 * 2 * site + 9 * 4),
+        entry("fused_sweep", fused, "tsu_tpu/ops/checkerboard_fused.py:136", launches,
+              max(err, err1s), ms, plain_ms, 3 * 2 * site + 9 * 4,
+              shard_launches=launches1s, shard_ms=st["K1 shard"],
+              shard_plain_ms=st["K1 shard plain"],
+              shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4)),
         entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
-              err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4),
+              err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4,
+              replica_sharded_launches=launches2s),
+        entry("halfsweep", "tsu_tpu_torch/csrc/checkerboard_halfsweep.cu",
+              "tsu_tpu/ops/checkerboard_pallas.py:79", launches3, err3, st["K3"], st["K3 plain"],
+              2 * 4 * site + 2 * 4 * MAIN_SHAPE[1] // 2, band_sites=n_band3,
+              band_differ=n_differ3, bf16_ms=st["K3 bf16"],
+              bf16_bound_ms=bound_ms(2 * 2 * site + 2 * 2 * MAIN_SHAPE[1] // 2),
+              host_ms_per_sharded_sweep={"rows 4 (K1)": st["host 4x1"],
+                                         "2 x 2 (K3)": st["host 2x2"]}),
         entry("bond_halfsweep", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:71", launches4,
               err4, bond_times["K4 discrete"][0], bond_times["K4 discrete"][2],
               5 * site + 9 * 4,

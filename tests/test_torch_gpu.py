@@ -1,9 +1,9 @@
-"""The CUDA kernels (the fused sweep of one lattice and of a batch of
-lattices, the bond half-sweep of one lattice and of a batch of replicas, the
-resident multi-sweep kernel at one table and over a schedule, the fused
-sweep's decomposition variants) against their plain PyTorch versions, and
-the batched and spin-glass paths on the card against the same paths on the
-CPU.
+"""The CUDA kernels (the fused sweep of one lattice, of a batch of lattices
+and of a shard, the bond half-sweep of one lattice and of a batch of
+replicas, the resident multi-sweep kernel at one table and over a schedule,
+the fused sweep's decomposition variants, the exact-sigmoid half-sweep)
+against their plain PyTorch versions, and the batched, spin-glass and
+sharded paths on the card against the same paths on the CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
 Hopper card and nvcc, run ``python -m pytest -m gpu tests/test_torch_gpu.py``;
@@ -34,6 +34,7 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
     continuous_band,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
+from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep, halfsweep_band, halfsweep_reference
 from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_anneal_tables,
     resident_anneal_tables_reference,
@@ -44,6 +45,11 @@ from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
     decomposition_sweep,
     decomposition_sweep_reference,
+)
+from tsu_tpu_torch.parallel import (
+    make_mesh,
+    parallel_tempering_replica_sharded,
+    sharded_checkerboard_sweeps,
 )
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.samplers import (
@@ -420,3 +426,120 @@ def test_decomposition_kernels_match_plain_versions(cuda, mode, shape, dtype, pe
                                          uniforms=U)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert decomposition_sweep.launches == before + 1
+
+
+@pytest.mark.parametrize("shape,dtype,periodic,col_halo,row0,col0", [
+    ((64, 64), torch.float32, True, False, 0, 0),
+    ((18, 20), torch.bfloat16, False, False, 0, 0),    # R % 8 != 0, open
+    ((34, 522), torch.float32, True, True, 34, 259),   # wider than a block, col0 % 4 != 0
+    ((16, 14), torch.bfloat16, True, True, 2, 6),
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_halfsweep_kernel_matches_plain_version(cuda, shape, dtype, periodic, col_halo, row0,
+                                                col0, injected):
+    """K3, both colours, three temperatures, random halos: equal to its plain
+    version at every site outside CONTINUOUS_BAND."""
+    R, C = shape
+    other = _black(20, R, C, dtype, cuda)
+    rng = np.random.default_rng(21)
+
+    def spins(*s):
+        return torch.as_tensor(np.where(rng.random(s) < 0.5, 1.0, -1.0), dtype=dtype).to(cuda)
+
+    up, down = spins(1, C // 2), spins(1, C // 2)
+    cols = dict(left_col=spins(R, 1), right_col=spins(R, 1)) if col_halo else {}
+    before = halfsweep.launches
+    for k, T in enumerate([0.7, 2.269, 4.0]):
+        for color in (0, 1):
+            U = None
+            if injected:
+                U = torch.as_tensor(rng.integers(0, 1 << 24, (R, C // 2)), dtype=torch.int32,
+                                    device=cuda)
+            kw = dict(update_red=color == 0, temperature=T, J=1.0, field=0.1, periodic=periodic,
+                      key=(31 + color, k), row0=row0, col0=col0, uniforms=U, **cols)
+            got = halfsweep(other, up, down, **kw)
+            want = halfsweep_reference(other, up, down, **kw)
+            _assert_bond_equal(got, want, halfsweep_band(other, up, down, **kw))
+            other = got
+    torch.cuda.synchronize()
+    assert halfsweep.launches == before + 6
+
+
+def test_halfsweep_kernel_rejects_operands_off_the_device(cuda):
+    other = _black(22, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        halfsweep(other, other[-1:].cpu(), other[:1], update_red=True, temperature=2.0)
+
+
+@pytest.mark.parametrize("shape,dtype,periodic,row0,R_global", [
+    ((64, 64), torch.bfloat16, True, 64, 256),
+    ((18, 20), torch.float32, False, 0, 36),        # the lattice's top row, open
+    ((34, 522), torch.bfloat16, False, 34, 68),     # the lattice's bottom row, open
+    ((16, 30), torch.float32, True, 0, 16),         # one shard: the whole lattice
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_fused_shard_mode_matches_plain_version(cuda, shape, dtype, periodic, row0, R_global,
+                                                injected):
+    R, C = shape
+    rng = np.random.default_rng(23)
+    black = _black(24, R, C, dtype, cuda)
+    up2, down2 = (torch.as_tensor(np.where(rng.random((2, C // 2)) < 0.5, 1.0, -1.0),
+                                  dtype=dtype).to(cuda) for _ in range(2))
+    top, bot = row0 == 0, row0 + R == R_global
+    if not periodic:
+        up2, down2 = (torch.zeros_like(up2) if top else up2), (torch.zeros_like(down2) if bot
+                                                                 else down2)
+    table = sigmoid_table16(1.0, 0.1, 2.269).to(cuda)
+    U = UH = None
+    if injected:
+        U = torch.as_tensor(rng.integers(0, 1 << 16, (2, R, C // 2)), dtype=torch.int32,
+                            device=cuda)
+        UH = tuple(torch.as_tensor(rng.integers(0, 1 << 16, (1, C // 2)), dtype=torch.int32,
+                                   device=cuda) for _ in range(2))
+    kw = dict(seed=6, sweep=4, periodic=periodic, uniforms=U, up2=up2, down2=down2,
+              shard_info=(row0, R_global, top, bot), uniforms_halo=UH)
+    before = fused_sweep.launches
+    got = fused_sweep(black, table, **kw)
+    want = fused_sweep_reference(black, table, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert fused_sweep.launches == before + 1
+
+
+@pytest.mark.parametrize("kernel,rows,cols", [("K1", 4, 1), ("K3", 2, 2), ("K3", 4, 1)])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_sharded_runs_equal_one_shard_on_the_card(cuda, kernel, rows, cols, periodic):
+    """Four shards on one card: the sharded run equals the one-shard run of
+    the same kernel bit for bit, and each shard launched its kernel."""
+    lat = torch.as_tensor(np.where(np.random.default_rng(25).random((64, 48)) < 0.5, 1.0, -1.0))
+    dtype = torch.bfloat16 if kernel == "K1" else torch.float32
+    red, black = (x.to(cuda, dtype).contiguous() for x in split_checkerboard(lat))
+    kw = dict(periodic=periodic, fused=kernel == "K1")
+    one = sharded_checkerboard_sweeps(make_mesh(devices=[cuda]), 8, red, black, 2.269, 3, **kw)
+    counter = fused_sweep if kernel == "K1" else halfsweep
+    before = counter.launches
+    got = sharded_checkerboard_sweeps(make_mesh(rows=rows, cols=cols, devices=[cuda] * 4), 8,
+                                      red, black, 2.269, 3,
+                                      col_axis="col" if cols > 1 else None, **kw)
+    assert torch.equal(one[0], got[0]) and torch.equal(one[1], got[1])
+    assert counter.launches == before + 4 * 3 * (1 if kernel == "K1" else 2)
+
+
+def test_sharded_paths_on_cuda_equal_those_on_cpu(cuda):
+    def grid(device, rows, cols):
+        g = IsingGrid((16, 16), periodic=True, seed=4, device=device,
+                      config=IsingConfig(n_burnin=10, n_sweeps=2))
+        out = g.sample_observables(4, temperature=2.269,
+                                   mesh=make_mesh(rows=rows, cols=cols, devices=[device] * 4))
+        return [torch.from_numpy(out["magnetization"]), torch.from_numpy(out["energy"])]
+
+    def tempering(device):
+        out = parallel_tempering_replica_sharded(make_mesh(replica=4, devices=[device] * 4), 3,
+                                                 (16, 16), np.geomspace(1.8, 3.0, 8),
+                                                 n_samples=6, swap_interval=2, n_burnin=4)
+        return [torch.from_numpy(out[k]) for k in ("magnetization", "energy", "rungs")]
+
+    cpu = torch.device("cpu")
+    for name, path in (("rows", lambda d: grid(d, 4, 1)), ("2-D", lambda d: grid(d, 2, 2)),
+                       ("tempering", tempering)):
+        for a, b in zip(path(cuda), path(cpu)):
+            assert torch.equal(a, b), name

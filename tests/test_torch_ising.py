@@ -166,10 +166,14 @@ def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
         "    n_samples=2)\n"
         "tsu_tpu_torch.parallel_tempering_bonds(0, J, -J, temperatures=[1.0, 2.0],\n"
         "                                       n_samples=2, n_burnin=2, device='cpu')\n"
+        "mesh = tsu_tpu_torch.make_mesh(rows=2, cols=2, devices=['cpu'] * 4)\n"
+        "tsu_tpu_torch.IsingGrid((8, 8), seed=0, device='cpu').sample_observables(\n"
+        "    n_samples=2, mesh=mesh)\n"
         "print(json.dumps({'jax': 'jax' in sys.modules,\n"
         "                  'triton': 'triton' in sys.modules,\n"
         "                  'built': _build.fused_sweep_library.cache_info().currsize\n"
-        "                  + _build.bond_sweep_library.cache_info().currsize}))\n"
+        "                  + _build.bond_sweep_library.cache_info().currsize\n"
+        "                  + _build.halfsweep_library.cache_info().currsize}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
@@ -205,7 +209,9 @@ def test_default_device_is_the_card(monkeypatch):
     lambda: IsingGrid((4, 4), device="cpu").set_coupling(0, 5, 1.0),
     lambda: demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1,
                                          device="cpu"),
-    lambda: IsingGrid((4, 4), device="cpu").sample_observables(mesh=object()),
+    lambda: tsu_tpu_torch.sharded_lattice_sample(
+        tsu_tpu_torch.make_mesh(rows=2, devices=["cpu"] * 2), 0, torch.ones(4, 4),
+        n_samples=1, temperature=2.0, checkpoint_path="ck"),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -2,11 +2,14 @@
 
 The port grows slice by slice beside the JAX package (see ROADMAP.md). It
 imports torch, numpy and scipy, never JAX and never ``tsu_tpu``. Its hot
-loops, the fused checkerboard sweep of one lattice and of a batch of
-lattices, the bond half-sweep of one lattice and of a batch of replicas, and
-the resident multi-sweep kernel (S sweeps in one launch), are CUDA kernels
-for Hopper built at first use. Entry points run on the card unless the
-caller passes ``device="cpu"``, which runs the plain PyTorch versions.
+loops are CUDA kernels for Hopper built at first use: the fused checkerboard
+sweep of one lattice, of a batch of lattices and of a shard; the bond
+half-sweep of one lattice and of a batch of replicas; the resident
+multi-sweep kernel (S sweeps in one launch); and the exact-sigmoid
+half-sweep of a lattice or a shard. ``tsu_tpu_torch.parallel`` drives
+sharded runs over a mesh of devices from one process. Entry points run on
+the card unless the caller passes ``device="cpu"``, which runs the plain
+PyTorch versions.
 """
 
 from tsu_tpu_torch.config import (
@@ -17,6 +20,13 @@ from tsu_tpu_torch.config import (
 )
 from tsu_tpu_torch.models.ising import IsingGrid, demonstrate_phase_transition
 from tsu_tpu_torch.ops.checkerboard_resident import resident_anneal, resident_sweeps
+from tsu_tpu_torch.parallel import (
+    make_mesh,
+    mesh_info,
+    plan_lattice_mesh,
+    sharded_checkerboard_sweeps,
+    sharded_lattice_sample,
+)
 from tsu_tpu_torch.samplers import (
     anneal_spin_glass,
     build_tempering_ladder,
@@ -33,8 +43,13 @@ __all__ = [
     "anneal_spin_glass",
     "build_tempering_ladder",
     "demonstrate_phase_transition",
+    "make_mesh",
+    "mesh_info",
     "parallel_tempering_bonds",
+    "plan_lattice_mesh",
     "pt_ground_state_search",
     "resident_anneal",
     "resident_sweeps",
+    "sharded_checkerboard_sweeps",
+    "sharded_lattice_sample",
 ]

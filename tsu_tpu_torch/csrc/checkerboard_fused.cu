@@ -31,6 +31,15 @@
 // injected uniforms (2, R, C2) int32 per lattice, [0] drives red and [1]
 // black.
 //
+// Shard mode. fused_sweep_shard_kernel is K1 on one shard of a row-sharded
+// lattice, the reference kernel's mode with external halos (up2/down2,
+// shard_info, uniforms_halo of fused_sweep_pallas): the rows past the plane's
+// edges come from the neighbour shards' halo rows instead of the plane's
+// wrap, and the draws are keyed by global rows. The red rows a shard
+// recomputes at its edges are then its neighbours' stored rows bit for bit,
+// and a sharded run returns what one lattice would. It is sweep_tile under
+// SHARD = true; the other kernels instantiate SHARD = false.
+//
 // Bound. At bf16 a sweep moves ~3 B/site of compulsory traffic (read black,
 // write red, write black: three half-lattice planes of 2 B), ~3.3 B/site with
 // the staged halo, against 3.35 TB/s; Philox adds ~0.3 calls (10 rounds of two
@@ -115,13 +124,31 @@ __device__ __forceinline__ void prng_only_tile(
   }
 }
 
+// Shard mode: the plane is rows [row0, row0 + R) of a lattice of R_global
+// rows, sharded by rows only. Rows outside [0, R) come from the neighbours:
+// black from up2 (global rows row0-2, row0-1) and down2 (row0+R, row0+R+1),
+// the red extension rows -1 and R are recomputed from them and drawn at their
+// global rows (wrapped), or read from the injected u_top / u_bot (the
+// neighbours' red uniforms of those rows). At an open lattice's global top
+// (is_top) or bottom (is_bot) the caller's halos are zeros and the extension
+// row is 0, as outside one lattice.
+template <typename T>
+struct Shard {
+  const T* up2;
+  const T* down2;
+  const int* u_top;
+  const int* u_bot;
+  int row0, R_global, is_top, is_bot;
+};
+
 // One sweep of the tile (blockIdx.y, blockIdx.x) of one lattice; MODE FULL
 // is the heat-bath sweep, PRNG_GROUPED and NOMATH its ablations (above).
-template <typename T, int MODE = FULL>
+// SHARD takes the plane's outside rows from `sh` instead of wrapping.
+template <typename T, int MODE = FULL, bool SHARD = false>
 __device__ __forceinline__ void sweep_tile(
     const T* __restrict__ black_in, T* __restrict__ red_out, T* __restrict__ black_out,
     const int* __restrict__ table, const int* __restrict__ uniforms, int R, int C2,
-    int periodic, uint32_t k0, uint32_t k1) {
+    int periodic, uint32_t k0, uint32_t k1, const Shard<T>& sh = Shard<T>{}) {
   __shared__ int8_t sb[SB_R][SB_C];     // black, staged with halos (0 outside an open lattice)
   __shared__ int8_t sr[SR_R][SR_C];     // new red, with one halo row/col
   __shared__ uint16_t sub[TR][TC];      // hi16 words for the black update (PRNG mode)
@@ -138,10 +165,21 @@ __device__ __forceinline__ void sweep_tile(
   if constexpr (MODE != PRNG_GROUPED) {
     for (int idx = tid; idx < SB_R * SB_C; idx += NT) {
       const int i = idx / SB_C, j = idx % SB_C;
-      const int gr = wrap_or_out(r0 - 2 + i, R, periodic);
       const int gc = wrap_or_out(c0 - 2 + j, C2, periodic);
-      sb[i][j] = (gr >= 0 && gc >= 0)
-          ? (int8_t)__float2int_rn(to_f32(black_in[(size_t)gr * C2 + gc])) : (int8_t)0;
+      if constexpr (SHARD) {
+        // Local rows -2, -1 are up2's, R and R+1 down2's; rows past R+1 feed
+        // no output.
+        const int lr = r0 - 2 + i;
+        const T* row = lr < 0 ? sh.up2 + (size_t)(lr + 2) * C2
+                       : lr < R ? black_in + (size_t)lr * C2
+                       : lr <= R + 1 ? sh.down2 + (size_t)(lr - R) * C2 : nullptr;
+        sb[i][j] = (row != nullptr && gc >= 0) ? (int8_t)__float2int_rn(to_f32(row[gc]))
+                                               : (int8_t)0;
+      } else {
+        const int gr = wrap_or_out(r0 - 2 + i, R, periodic);
+        sb[i][j] = (gr >= 0 && gc >= 0)
+            ? (int8_t)__float2int_rn(to_f32(black_in[(size_t)gr * C2 + gc])) : (int8_t)0;
+      }
     }
   }
   __syncthreads();
@@ -151,31 +189,48 @@ __device__ __forceinline__ void sweep_tile(
   // rows and j+1 on odd rows.
   for (int idx = tid; idx < SR_R * NG; idx += NT) {
     const int i = idx / NG, g = idx % NG;
-    const int gr = wrap_or_out(r0 - 1 + i, R, periodic);
+    // `in`: the row is inside the lattice; lr: its row in the plane, whose
+    // parity picks the partner; pr: its row in the lattice, which keys its
+    // draw; u_row: its injected red uniforms.
+    int lr, pr;
+    bool in;
+    const int* u_row = uniforms;
+    if constexpr (SHARD) {
+      lr = r0 - 1 + i;
+      in = lr < 0 ? periodic || !sh.is_top : lr < R || (lr == R && (periodic || !sh.is_bot));
+      pr = (sh.row0 + lr + sh.R_global) % sh.R_global;
+      if (uniforms != nullptr && in)
+        u_row = lr < 0 ? sh.u_top : lr == R ? sh.u_bot : uniforms + (size_t)lr * C2;
+    } else {
+      const int gr = wrap_or_out(r0 - 1 + i, R, periodic);   // -1 outside an open lattice
+      in = gr >= 0;
+      lr = pr = gr;
+      if (uniforms != nullptr && in) u_row = uniforms + (size_t)gr * C2;
+    }
     const int j0 = g == 0 ? 0 : g == NG - 1 ? SR_C - 1 : 1 + 4 * (g - 1);
     const int n = (g == 0 || g == NG - 1) ? 1 : 4;
     const int gc0 = c0 - 1 + j0;
     // A whole quad inside the lattice shares one Philox call.
-    const bool quad = uniforms == nullptr && n == 4 && gr >= 0 && gc0 + 3 < C2;
+    const bool quad = uniforms == nullptr && n == 4 && in && gc0 + 3 < C2;
     uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (quad) w = philox4x32_10(make_uint4((uint32_t)gr, (uint32_t)(gc0 >> 2), 0u, 0u), k0, k1);
+    if (quad) w = philox4x32_10(make_uint4((uint32_t)pr, (uint32_t)(gc0 >> 2), 0u, 0u), k0, k1);
     for (int t = 0; t < n; ++t) {
       const int j = j0 + t;
       const int gc = wrap_or_out(gc0 + t, C2, periodic);
       int8_t s = 0;
-      if (gr >= 0 && gc >= 0) {
+      if (in && gc >= 0) {
         int u_red;
         if (uniforms != nullptr) {
-          u_red = uniforms[(size_t)gr * C2 + gc];
+          u_red = u_row[gc];
         } else {
-          const uint32_t word = quad ? pick(w, t) : site_word(gr, gc, k0, k1);
+          const uint32_t word = quad ? pick(w, t) : site_word(pr, gc, k0, k1);
           u_red = (int)(word & 0xFFFFu);
           const int bi = i - 1, bj = j - 1;
           if (MODE != NOMATH && bi >= 0 && bi < TR && bj >= 0 && bj < TC)
             sub[bi][bj] = (uint16_t)(word >> 16);
         }
         if constexpr (MODE == FULL) {
-          const int horiz = (gr & 1) ? sb[i + 1][j + 2] : sb[i + 1][j];
+          const int horiz = (lr & 1) ? sb[i + 1][j + 2] : sb[i + 1][j];
           const int nbr = sb[i][j + 1] + sb[i + 2][j + 1] + sb[i + 1][j + 1] + horiz;
           s = u_red < st[nbr + 4] ? 1 : -1;
         } else if constexpr (MODE == NOMATH) {
@@ -220,6 +275,16 @@ __global__ void __launch_bounds__(NT) fused_sweep_kernel(
     const int* __restrict__ table, const int* __restrict__ uniforms, int R, int C2,
     int periodic, uint32_t k0, uint32_t k1) {
   sweep_tile<T>(black_in, red_out, black_out, table, uniforms, R, C2, periodic, k0, k1);
+}
+
+// K1 on one shard of a row-sharded lattice (Shard).
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_sweep_shard_kernel(
+    const T* __restrict__ black_in, T* __restrict__ red_out, T* __restrict__ black_out,
+    const int* __restrict__ table, const int* __restrict__ uniforms, int R, int C2,
+    int periodic, uint32_t k0, uint32_t k1, Shard<T> sh) {
+  sweep_tile<T, FULL, true>(black_in, red_out, black_out, table, uniforms, R, C2, periodic, k0,
+                            k1, sh);
 }
 
 // Lattice b = blockIdx.z: planes at b * R * C2, table row b, key row b,
@@ -294,6 +359,39 @@ extern "C" int tsu_fused_sweep(const void* black_in, void* red_out, void* black_
     fused_sweep_kernel<float><<<grid, NT, 0, s>>>(
         (const float*)black_in, (float*)red_out, (float*)black_out, (const int*)table,
         (const int*)uniforms, R, C2, periodic, k0, k1);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One sweep of one shard of a row-sharded lattice on `stream`: the plane is
+// rows [row0, row0 + R) of R_global (row0 even). Operands as
+// tsu_fused_sweep's, plus up2 and down2, (2, C2) black halo rows of the
+// planes' dtype (global rows row0-2, row0-1 and row0+R, row0+R+1, zeros at an
+// open global edge), is_top and is_bot (the shard holds the lattice's first
+// or last row), and with uniforms u_top and u_bot, (C2,) int32 red uniforms
+// of global rows row0-1 and row0+R. Returns cudaGetLastError() after the
+// launch.
+extern "C" int tsu_fused_sweep_shard(const void* black_in, void* red_out, void* black_out,
+                                     const void* table, const void* uniforms, const void* up2,
+                                     const void* down2, const void* u_top, const void* u_bot,
+                                     int R, int C2, int row0, int R_global, int is_top,
+                                     int is_bot, int periodic, unsigned int k0, unsigned int k1,
+                                     int is_bf16, void* stream) {
+  const dim3 grid((C2 + TC - 1) / TC, (R + TR - 1) / TR);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    const Shard<T> sh = {(const T*)up2, (const T*)down2, (const int*)u_top, (const int*)u_bot,
+                         row0, R_global, is_top, is_bot};
+    fused_sweep_shard_kernel<T><<<grid, NT, 0, s>>>(
+        (const T*)black_in, (T*)red_out, (T*)black_out, (const int*)table, (const int*)uniforms,
+        R, C2, periodic, k0, k1, sh);
+  } else {
+    const Shard<float> sh = {(const float*)up2, (const float*)down2, (const int*)u_top,
+                             (const int*)u_bot, row0, R_global, is_top, is_bot};
+    fused_sweep_shard_kernel<float><<<grid, NT, 0, s>>>(
+        (const float*)black_in, (float*)red_out, (float*)black_out, (const int*)table,
+        (const int*)uniforms, R, C2, periodic, k0, k1, sh);
   }
   return (int)cudaGetLastError();
 }

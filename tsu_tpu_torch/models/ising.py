@@ -27,6 +27,7 @@ from tsu_tpu_torch.models.lattice_sampler import (
 )
 from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch
 from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds
+from tsu_tpu_torch.parallel.lattice import sharded_lattice_sample
 from tsu_tpu_torch.rng import as_generator
 from tsu_tpu_torch.samplers.annealing import anneal_lattice, anneal_spin_glass
 
@@ -179,14 +180,25 @@ class IsingGrid:
                            temperature: Optional[float] = None,
                            mesh=None) -> dict:
         """Per-sample magnetization (per spin) and total energy, without
-        returning states; the lattice stays on the device."""
-        if mesh is not None:
-            raise _not_ported("sample_observables over a device mesh", "slice 6")
+        returning states; the lattice stays on the device.
+
+        ``mesh`` (a :class:`~tsu_tpu_torch.parallel.Mesh`): shard a uniform
+        grid over its ``row`` axis, and over its ``col`` axis too when that
+        is larger than 1 (:func:`~tsu_tpu_torch.parallel.sharded_lattice_sample`);
+        the shards live on the mesh's devices. A grid with bonds ignores
+        ``mesh``."""
         if self._Jh is not None:
             out = sample_lattice_bonds(self._gen, self._initial_lattice(None), self._Jh,
                                        self._Jv, collect="observables",
                                        **self._bond_chain_args(n_samples, temperature))
             return {k: v.cpu().numpy() for k, v in out.items()}
+        if mesh is not None:
+            out = sharded_lattice_sample(
+                mesh, self._gen, self._initial_lattice(None),
+                col_axis="col" if mesh.shape["col"] > 1 else None,
+                **self._chain_args(n_samples, temperature))
+            return {"magnetization": out["magnetization"].numpy(),
+                    "energy": out["energy"].numpy()}
         ms, es = [], []
         for lattice in sample_chain(self._gen, self._initial_lattice(None),
                                     **self._chain_args(n_samples, temperature)):

@@ -69,6 +69,9 @@ def fused_sweep_library() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.tsu_fused_sweep.argtypes = [p, p, p, p, p, i, i, i, u, u, i, p]
     lib.tsu_fused_sweep.restype = i
+    lib.tsu_fused_sweep_shard.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, u,
+                                          u, i, p]
+    lib.tsu_fused_sweep_shard.restype = i
     lib.tsu_fused_sweep_batched.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tsu_fused_sweep_batched.restype = i
     lib.tsu_decomposition_sweep.argtypes = [i, p, p, p, p, i, i, i, u, u, i, p]
@@ -86,6 +89,18 @@ def resident_sweep_library() -> ctypes.CDLL:
     lib.tsu_resident_sweeps.argtypes = [p, p, p, i, p, i, i, i, i, u, i,
                                         ctypes.POINTER(ctypes.c_int), p]
     lib.tsu_resident_sweeps.restype = i
+    return lib
+
+
+@functools.cache
+def halfsweep_library() -> ctypes.CDLL:
+    """The exact-sigmoid half-sweep kernel library (one lattice or one
+    shard, with optional column halos), built and loaded once per process."""
+    lib = ctypes.CDLL(str(library_path("checkerboard_halfsweep",
+                                       ("checkerboard_halfsweep.cu",))))
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.tsu_halfsweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, f, i, i, u, u, i, p]
+    lib.tsu_halfsweep.restype = i
     return lib
 
 

@@ -78,6 +78,41 @@ def neighbor_sum_half_halo(other: torch.Tensor, up_row: torch.Tensor,
     return up + down + horiz
 
 
+def neighbor_sum_half_halo2d(other: torch.Tensor, up_row: torch.Tensor,
+                             down_row: torch.Tensor, left_col: torch.Tensor,
+                             right_col: torch.Tensor, update_red: bool) -> torch.Tensor:
+    """4-neighbour sum with halos on all four sides (a shard of a row and
+    column sharded lattice). ``left_col``/``right_col`` are (..., R, 1): the
+    compact columns next to the shard's first and last one (the neighbour
+    shard's, the wrap columns, or zeros at an open edge, which add nothing,
+    so nothing is masked). The row-parity rule does not depend on the
+    column offset, so any split of the compact columns works."""
+    R = other.shape[-2]
+    row_is_even = _row_is_even(R, other.device)
+    up = torch.cat([up_row, other[..., :-1, :]], dim=-2)
+    down = torch.cat([other[..., 1:, :], down_row], dim=-2)
+    left_shift = torch.cat([left_col, other[..., :, :-1]], dim=-1)
+    right_shift = torch.cat([other[..., :, 1:], right_col], dim=-1)
+    if update_red:
+        horiz = torch.where(row_is_even, left_shift + other, other + right_shift)
+    else:
+        horiz = torch.where(row_is_even, other + right_shift, left_shift + other)
+    return up + down + horiz
+
+
+def halfstep_with_halo2d(generator: torch.Generator, other, up_row, down_row,
+                         left_col, right_col, update_red, temperature, J, field):
+    """Heat-bath resample of one colour of a shard with four-sided halos.
+
+    ``generator`` must live on ``other``'s device.
+    """
+    nbr = neighbor_sum_half_halo2d(other, up_row, down_row, left_col, right_col,
+                                   update_red)
+    p_up = torch.sigmoid(2.0 * (J * nbr.float() + field) / temperature)
+    u = torch.rand(other.shape, generator=generator, device=other.device)
+    return torch.where(u < p_up, 1.0, -1.0).to(other.dtype)
+
+
 def wrap_halos(plane: torch.Tensor, periodic: bool):
     """Single-device vertical halo rows: periodic wrap or zeros (open)."""
     if periodic:

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch.ops._build import fused_sweep_library
-from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half
+from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half, neighbor_sum_half_halo
 from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words, sweep_keys
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -93,12 +93,69 @@ def _plain_sweep(black, table, u_red, u_black, periodic):
     return red.to(black.dtype), new_black.to(black.dtype)
 
 
+def _check_shard(black, uniforms, up2, down2, shard_info, uniforms_halo):
+    """Raise unless the shard-mode operands fit the plane: up2 and down2
+    (2, C2) of black's dtype; shard_info (row0, R_global, is_top, is_bot)
+    with row0 even and the plane inside the lattice; uniforms_halo two
+    (1, C2) int32 rows exactly when uniforms are injected."""
+    R, C2 = black.shape
+    for name, t in (("up2", up2), ("down2", down2)):
+        if t is None or t.shape != (2, C2) or t.dtype != black.dtype:
+            raise ValueError(f"{name} must be {(2, C2)} {black.dtype}, got "
+                             f"{None if t is None else (tuple(t.shape), t.dtype)}")
+    if shard_info is None or len(shard_info) != 4:
+        raise ValueError("shard mode takes shard_info = (row0, R_global, is_top, is_bot)")
+    row0, R_global = int(shard_info[0]), int(shard_info[1])
+    if row0 % 2 or row0 < 0 or row0 + R > R_global:
+        raise ValueError(f"a shard of {R} rows must start on an even row inside the lattice's "
+                         f"{R_global}, got row0 {row0}")
+    if (uniforms is None) != (uniforms_halo is None):
+        raise ValueError("injected uniforms in shard mode take uniforms_halo, and only they")
+    if uniforms_halo is not None and any(
+            u.numel() != C2 or u.dtype != torch.int32 for u in uniforms_halo):
+        raise ValueError(f"uniforms_halo must be two rows of {C2} int32")
+
+
+def _plain_shard_sweep(black, table, u_red_ext, u_black, up2, down2, is_top, is_bot,
+                       periodic):
+    """The sweep of one shard: red on its rows -1..R from black extended by
+    the halo rows (the first of them has odd parity, so it takes the black
+    rule's neighbour sum), the extension rows zeroed at an open global edge,
+    then black from the extended red."""
+    table = table.to(black.device)
+    ext = torch.cat([up2, black, down2]).float()
+    red = _heatbath(neighbor_sum_half_halo(ext[1:-1], ext[:1], ext[-1:], False, periodic),
+                    u_red_ext, table)
+    if not periodic:
+        row = torch.arange(red.shape[0], device=black.device)[:, None]
+        red = torch.where(((row == 0) & bool(is_top)) | ((row == red.shape[0] - 1) & bool(is_bot)),
+                          0.0, red)
+    new_black = _heatbath(neighbor_sum_half_halo(red[1:-1], red[:1], red[-1:], False, periodic),
+                          u_black, table)
+    return red[1:-1].to(black.dtype), new_black.to(black.dtype)
+
+
 def fused_sweep_reference(black: torch.Tensor, table: torch.Tensor, *,
                           seed: int = 0, sweep: int = 0, periodic: bool = True,
-                          uniforms: torch.Tensor | None = None):
+                          uniforms: torch.Tensor | None = None, up2=None, down2=None,
+                          shard_info=None, uniforms_halo=None):
     """Plain PyTorch version of the fused sweep kernel; returns (red, black)."""
     _check(black, table, uniforms)
     R, C2 = black.shape
+    if up2 is not None or shard_info is not None:
+        _check_shard(black, uniforms, up2, down2, shard_info, uniforms_halo)
+        row0, R_global, is_top, is_bot = (int(v) for v in shard_info)
+        if uniforms is None:
+            rows = (row0 - 1 + torch.arange(R + 2)) % R_global
+            words = philox_words(fold_seed(seed), sweep, R + 2, C2, device=black.device,
+                                 rows=rows)
+            u_red, u_black = words & 0xFFFF, words[1:-1] >> 16
+        else:
+            u_red = torch.cat([uniforms_halo[0].reshape(1, C2), uniforms[0],
+                               uniforms_halo[1].reshape(1, C2)])
+            u_black = uniforms[1]
+        return _plain_shard_sweep(black, table, u_red, u_black, up2, down2, is_top, is_bot,
+                                  periodic)
     if uniforms is None:
         words = philox_words(fold_seed(seed), sweep, R, C2, device=black.device)
         u_red, u_black = words & 0xFFFF, words >> 16
@@ -109,7 +166,8 @@ def fused_sweep_reference(black: torch.Tensor, table: torch.Tensor, *,
 
 def fused_sweep(black: torch.Tensor, table: torch.Tensor, *, seed: int = 0,
                 sweep: int = 0, periodic: bool = True,
-                uniforms: torch.Tensor | None = None):
+                uniforms: torch.Tensor | None = None, up2=None, down2=None,
+                shard_info=None, uniforms_halo=None):
     """One full sweep (red, then black); returns new (red, black) planes.
 
     ``black``: (R, C2) float32 or bfloat16 plane, R even. ``table``: (9,)
@@ -119,26 +177,53 @@ def fused_sweep(black: torch.Tensor, table: torch.Tensor, *, seed: int = 0,
     ``fused_sweep.launches`` grows by one; a CPU tensor runs
     :func:`fused_sweep_reference`. The red plane is never read: heat-bath
     red depends only on black.
+
+    Shard mode, for a shard of a row-sharded lattice
+    (:mod:`tsu_tpu_torch.parallel.lattice`): ``up2``/``down2`` are the
+    (2, C2) black rows above and below the shard (global rows row0-2,
+    row0-1 and row0+R, row0+R+1; zeros at an open global edge), which
+    replace the plane's wrap; ``shard_info`` = (row0, R_global, is_top,
+    is_bot): the shard's first global row (even), the lattice's rows, and
+    whether the shard holds the lattice's first or last row; with injected
+    uniforms, ``uniforms_halo`` = (u_top, u_bot), the (1, C2) red uniforms
+    of global rows row0-1 and row0+R, which the neighbour shards hold.
+    Draws are keyed by global rows, so the red rows a shard recomputes at
+    its edges are its neighbours' stored rows.
     """
     if black.device.type == "cpu":
         return fused_sweep_reference(black, table, seed=seed, sweep=sweep,
-                                     periodic=periodic, uniforms=uniforms)
+                                     periodic=periodic, uniforms=uniforms, up2=up2,
+                                     down2=down2, shard_info=shard_info,
+                                     uniforms_halo=uniforms_halo)
     if black.device.type != "cuda":
         raise ValueError(f"fused_sweep runs on cpu or cuda tensors, got {black.device}")
     _check(black, table, uniforms)
     _check_on(black.device, black=black, table=table, uniforms=uniforms)
+    shard = up2 is not None or shard_info is not None
+    if shard:
+        _check_shard(black, uniforms, up2, down2, shard_info, uniforms_halo)
+        u_top, u_bot = (None, None) if uniforms_halo is None else uniforms_halo
+        _check_on(black.device, up2=up2, down2=down2, u_top=u_top, u_bot=u_bot)
 
     lib = fused_sweep_library()
     R, C2 = black.shape
     red_out = torch.empty_like(black)
     black_out = torch.empty_like(black)
+    tail = (fold_seed(seed) & MASK32, sweep & MASK32, int(black.dtype == torch.bfloat16),
+            torch.cuda.current_stream(black.device).cuda_stream)
+    u = None if uniforms is None else uniforms.data_ptr()
     with torch.cuda.device(black.device):
-        err = lib.tsu_fused_sweep(
-            black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(),
-            table.data_ptr(), None if uniforms is None else uniforms.data_ptr(),
-            R, C2, int(periodic), fold_seed(seed) & MASK32, sweep & MASK32,
-            int(black.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+        if shard:
+            err = lib.tsu_fused_sweep_shard(
+                black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(), table.data_ptr(),
+                u, up2.data_ptr(), down2.data_ptr(),
+                None if u_top is None else u_top.data_ptr(),
+                None if u_bot is None else u_bot.data_ptr(), R, C2,
+                *(int(v) for v in shard_info), int(periodic), *tail)
+        else:
+            err = lib.tsu_fused_sweep(
+                black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(),
+                table.data_ptr(), u, R, C2, int(periodic), *tail)
     if err:
         raise RuntimeError(f"fused sweep kernel launch failed with CUDA error {err}")
     fused_sweep.launches += 1

@@ -1,0 +1,34 @@
+"""Device-mesh parallelism: replicas and spatial lattice sharding, driven by
+one controller (counterpart of ``tsu_tpu/parallel/``).
+
+* ``replica`` axis: parallel tempering with the rungs' replicas spread over
+  the devices (:func:`parallel_tempering_replica_sharded`).
+* ``row`` and ``col`` axes: one large lattice cut into shards that exchange
+  halo rows and columns before each kernel launch.
+
+A mesh may hold one device several times, so one card (or the CPU) carries
+a sharded run; on several cards the halos are device-to-device copies. The
+reference's sharded SMC (``smc_sharded``) waits for the continuous samplers
+(slice 5) and its multi-host runtime for slice 8 (ROADMAP.md).
+"""
+
+from tsu_tpu_torch.parallel.lattice import sharded_checkerboard_sweeps, sharded_lattice_sample
+from tsu_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    mesh_info,
+    multihost_initialize,
+    plan_lattice_mesh,
+)
+from tsu_tpu_torch.parallel.tempering_sharded import parallel_tempering_replica_sharded
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "mesh_info",
+    "multihost_initialize",
+    "parallel_tempering_replica_sharded",
+    "plan_lattice_mesh",
+    "sharded_checkerboard_sweeps",
+    "sharded_lattice_sample",
+]

@@ -108,17 +108,25 @@ def philox4x32(counter, key0, key1):
     return x0, x1, x2, x3
 
 
-def philox_words(key0, key1, R: int, C2: int, device=None) -> torch.Tensor:
+def philox_words(key0, key1, R: int, C2: int, device=None, *,
+                 rows: Optional[torch.Tensor] = None, col0: int = 0) -> torch.Tensor:
     """(R, C2) int64 words in [0, 2^32): site (r, c) gets output c % 4 of
     Philox4x32-10 at counter (r, c // 4, 0, 0) under key (key0, key1).
 
     Keys are ints, or int64 tensors of shape (B, 1, 1) holding uint32 values
     for a batch of B keys, which gives (B, R, C2) words.
+
+    A shard of a larger lattice draws its sites' words by their global
+    coordinates: ``rows`` (R,) gives the global row of each of its rows
+    (default 0..R-1) and ``col0`` the global column of its column 0.
     """
-    Q = -(-C2 // 4)
-    rows = torch.arange(R, dtype=torch.int64, device=device)[:, None]
-    quads = torch.arange(Q, dtype=torch.int64, device=device)[None, :]
+    lane = col0 % 4
+    Q = -(-(lane + C2) // 4)
+    if rows is None:
+        rows = torch.arange(R, dtype=torch.int64, device=device)
+    rows = rows.to(device=device, dtype=torch.int64)[:, None]
+    quads = col0 // 4 + torch.arange(Q, dtype=torch.int64, device=device)[None, :]
     zero = torch.zeros((R, Q), dtype=torch.int64, device=device)
     words = torch.broadcast_tensors(
         *philox4x32((rows + zero, quads + zero, zero, zero), key0, key1))
-    return torch.stack(words, dim=-1).flatten(-2)[..., :C2]
+    return torch.stack(words, dim=-1).flatten(-2)[..., lane:lane + C2]

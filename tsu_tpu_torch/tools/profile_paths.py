@@ -5,8 +5,8 @@ Run from the repository root on a machine with a card:
 
     python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR]
 
-Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13 and
-17), once to warm up and once under the profiler. For each path it prints
+Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13, 17
+and 22), once to warm up and once under the profiler. For each path it prints
 the wall time, the device busy time and idle share, the count and device
 time of the port's kernels, the host's kernel launches and their host time,
 and the operations with the most device time. Busy time sums only the
@@ -33,6 +33,7 @@ from tsu_tpu_torch import IsingGrid, demonstrate_phase_transition
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps, fused_sweeps_keyed, sigmoid_table16
+from tsu_tpu_torch.parallel import make_mesh, parallel_tempering_replica_sharded
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.tools.bench import ea_codes
 from tsu_tpu_torch.tools.timing import card
@@ -47,7 +48,7 @@ GRID = (4096, 4096)        # the README quick start and the ground-state search
 SCAN = (16, 1024)          # the phase scan: 16 temperatures x 1024^2
 PT = (64, 256, 256)        # tempering: 64 rungs x 256^2
 TOP = 8                    # device operations listed per path
-KERNEL_NAMES = ("fused_sweep", "bond_halfsweep")
+KERNEL_NAMES = ("fused_sweep", "bond_halfsweep", "halfsweep_kernel")
 
 
 def _ladder_search(Jh, Jv, dev):
@@ -91,6 +92,15 @@ def paths(dev) -> dict:
         # One call of each row of tools.bench (chip_smoke phase 17). The
         # resident kernel's cooperative launch is left out: in a profiler
         # window that held one, key_averages() listed no device event at all.
+        # The sharded paths, four shards on one card (phase 22).
+        "sharded sample 4 x 1": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev)
+        .sample_observables(4, temperature=2.269, mesh=make_mesh(rows=4, devices=[dev] * 4)),
+        "sharded sample 2 x 2": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev)
+        .sample_observables(4, temperature=2.269,
+                            mesh=make_mesh(rows=2, cols=2, devices=[dev] * 4)),
+        "replica-sharded tempering": lambda: parallel_tempering_replica_sharded(
+            make_mesh(replica=4, devices=[dev] * 4), 0, PT[1:], np.geomspace(1.8, 3.0, PT[0]),
+            n_samples=200, swap_interval=10, n_burnin=100),
         "bench K1 call": lambda: fused_sweeps(1, red, black, 2.269, 5000),
         "bench EA call": lambda: checkerboard_sweeps_bonds_kernel(
             1, red, black, codes, 1.2, 1000, discrete=True, pure=True),

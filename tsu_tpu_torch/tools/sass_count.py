@@ -4,7 +4,7 @@ Run from the repository root on a machine with the CUDA toolkit:
 
     python3 -m tsu_tpu_torch.tools.sass_count [--sass FILE ...] [--out DIR]
 
-With no ``--sass`` it builds the three kernel libraries (``ops/_build.py``)
+With no ``--sass`` it builds the four kernel libraries (``ops/_build.py``)
 and disassembles them with ``cuobjdump -sass``; ``--sass`` reads such dumps
 instead. For every kernel function it prints its instruction count and, for
 each innermost loop (a backward branch and the code it jumps over), the
@@ -40,7 +40,8 @@ _TARGET = re.compile(r"0x([0-9a-f]+)")
 _INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
             "IMNMX", "IABS", "SEL", "PRMT", "VIADD", "VIMNMX", "BMSK", "SGXT", "BREV", "FLO",
             "POPC", "ICMP", "ISCADD", "IDP", "IMUL")
-LIBRARIES = ("checkerboard_fused", "checkerboard_bonds", "checkerboard_resident")
+LIBRARIES = ("checkerboard_fused", "checkerboard_bonds", "checkerboard_resident",
+             "checkerboard_halfsweep")
 
 
 def is_int32(op: str) -> bool:
