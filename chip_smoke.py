@@ -10,20 +10,24 @@ Phases, each of which raises on failure:
     and build the fused-sweep, the bond, the resident and the half-sweep
     kernels from tsu_tpu_torch/csrc, one nvcc per source, all at once;
  2. kernel against its plain PyTorch version with injected uniforms, bit for
-    bit: 3 sweeps over a temperature schedule at 4096^2 bf16 periodic and at
-    1002x1000 f32 open;
- 3. the same in Philox mode: 2 sweeps at 4096^2 bf16;
+    bit: 3 sweeps over a temperature schedule at 4096^2 bf16 periodic, at
+    1002x1000 f32 open and at 4096x4094 bf16 (C/2 = 2047, not a multiple of
+    4: the kernel's site-by-site path) open and periodic;
+ 3. the same in Philox mode: 2 sweeps at 4096^2 and 4096x4094 bf16;
  4. statistics: 4x4 periodic at T=2.5 against exact enumeration, T=1e9 at
     1024^2 against m=0, T=2.0 at 512^2 against Onsager's magnetization;
  5. the main path, IsingGrid((4096, 4096), periodic=True).sample(...), with
     a count of kernel launches;
- 6. kernel and plain times per sweep at 4096^2 bf16, timed with CUDA events;
+ 6. kernel and plain times per sweep at 4096^2 bf16, timed with CUDA events:
+    the kernel through fused_sweeps (one host launch per sweep, as the
+    headline runs it) and from a CUDA graph of 1000 launches;
  7. the batched kernel against its plain version, bit for bit, at the shape
     and tables of each batched path: injected uniforms over 3 sweeps and
     Philox mode over 2 at 16 x 1024^2 bf16 (the phase scan's 16
     temperatures), 2 x 4096^2 bf16 (rows of the anneal's schedule, keyed by
     its global sweep counter) and 64 x 256^2 bf16 (the tempering ladder);
-    injected uniforms at 3 x 1002x1000 f32 open; and element b of one
+    injected uniforms at 3 x 1002x1000 f32 open, and 2 x 4096x4094 bf16 open
+    and periodic (C/2 = 2047), injected and Philox; and element b of one
     batched launch against the single-lattice kernel under seed b;
  8. statistics of the batched paths: a 4x4 ensemble and the cold rung of a
     4x4 tempering ladder against exact enumeration, decorrelated members at
@@ -32,7 +36,8 @@ Phases, each of which raises on failure:
     time: the phase scan (16 x 1024^2), IsingGrid((4096, 4096))
     .find_ground_state(1000) and tempering over 64 rungs of 256^2, with
     physics checks, and each at 16x16 equal on cuda and on cpu;
-10. batched kernel and plain times per sweep at 16 x 1024^2 bf16;
+10. batched kernel and plain times per sweep at 16 x 1024^2 bf16, the kernel
+    launched one by one and from a CUDA graph of 1000 launches;
 11. the bond kernels against their plain versions at the spin-glass paths'
     shapes: K4 discrete (packed, pure) at 4096^2 bf16 on the anneal's
     schedule rows, injected over 3 sweeps and Philox over 2, bit for bit;
@@ -100,7 +105,8 @@ Phases, each of which raises on failure:
 
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s;
-the eight TPU kernels K1-K8 and their CUDA counterparts)
+the eight TPU kernels K1-K8 and their CUDA counterparts; K1 and K2 also
+carry graph_ms, their time from a CUDA graph)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
@@ -194,6 +200,7 @@ RESIDENT_SWEEPS = 500                    # sweeps per timed resident call (kerne
 BENCH = dict(sweeps=5000, ea_sweeps=1000, calls=3, n_trials=3)   # tools.bench's defaults
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory rate
 SHARD = (1024, 4096)                     # one of 4 row shards of MAIN_SHAPE
+RAGGED_SHAPE = (4096, 4094)              # full width with C/2 = 2047, not a multiple of 4
 
 
 def log(msg: str):
@@ -379,6 +386,8 @@ def phase_batched_exact(dev, gen, cgen) -> float:
         ((PT_RUNGS, *PT_SHAPE), torch.bfloat16, True, np.geomspace(1.8, 3.0, PT_RUNGS),
          np.arange(3)[:, None]),
         ((3, 1002, 1000), torch.float32, False, SCHEDULE, np.arange(3)[:, None]),
+        ((2, *RAGGED_SHAPE), torch.bfloat16, False, SCHEDULE[:2], np.arange(3)[:, None]),
+        ((2, *RAGGED_SHAPE), torch.bfloat16, True, SCHEDULE[:2], np.arange(3)[:, None]),
     ]
     err = 0.0
     for shape, dtype, periodic, temps, sweeps in cases:
@@ -559,12 +568,14 @@ def phase_timing_batched(dev, name):
     kernel(10)
     plain(2)
     ms = time_sweeps(kernel, 1000)
+    g_ms = graph_ms(kernel, 1000)
     plain_ms = time_sweeps(plain, 20)
     n = ENSEMBLE[0] * ENSEMBLE[1] * ENSEMBLE[2]
     log(f"timing {ENSEMBLE} bf16 periodic on {name}: batched kernel {ms:.6f} ms/sweep "
-        f"({n / ms * 1e3:.4e} flips/s, 1000 sweeps), plain {plain_ms:.6f} ms/sweep "
+        f"({n / ms * 1e3:.4e} flips/s, 1000 sweeps), {g_ms:.6f} ms/sweep ({n / g_ms * 1e3:.4e} "
+        f"flips/s, a CUDA graph of 1000), plain {plain_ms:.6f} ms/sweep "
         f"({n / plain_ms * 1e3:.4e} flips/s, 20 sweeps)")
-    return ms, plain_ms
+    return ms, g_ms, plain_ms
 
 
 def phase_timing(dev, name):
@@ -581,15 +592,22 @@ def phase_timing(dev, name):
         for k in range(n):
             _, b = fused_sweep_reference(b, table, seed=7, sweep=k, periodic=True)
 
+    def chained(n):                     # no host copy: a CUDA graph can capture it
+        b = black
+        for k in range(n):
+            _, b = fused_sweep(b, table, seed=7, sweep=k, periodic=True)
+
     kernel(10)
     plain(2)
     ms = time_sweeps(kernel, 1000)
+    g_ms = graph_ms(chained, 1000)
     plain_ms = time_sweeps(plain, 20)
     n = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     log(f"timing 4096^2 bf16 periodic on {name}: kernel {ms:.6f} ms/sweep "
-        f"({n / ms * 1e3:.4e} flips/s, 1000 sweeps), plain {plain_ms:.6f} ms/sweep "
+        f"({n / ms * 1e3:.4e} flips/s, 1000 sweeps of fused_sweeps), {g_ms:.6f} ms/sweep "
+        f"({n / g_ms * 1e3:.4e} flips/s, a CUDA graph of 1000), plain {plain_ms:.6f} ms/sweep "
         f"({n / plain_ms * 1e3:.4e} flips/s, 20 sweeps)")
-    return ms, plain_ms
+    return ms, g_ms, plain_ms
 
 
 def pm1_bonds(gen: torch.Generator, shape):
@@ -1423,16 +1441,20 @@ def main() -> int:
     cgen = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
     for shape, dtype, periodic in ((MAIN_SHAPE, torch.bfloat16, True),
-                                   ((1002, 1000), torch.float32, False)):
+                                   ((1002, 1000), torch.float32, False),
+                                   (RAGGED_SHAPE, torch.bfloat16, False),
+                                   (RAGGED_SHAPE, torch.bfloat16, True)):
         black = random_black(gen, shape, dtype, dev)
         U = torch.randint(0, 1 << 16, (3, 2, shape[0], shape[1] // 2),
                           generator=cgen, device=dev, dtype=torch.int32)
         err = max(err, compare_chains(black, SCHEDULE, periodic, U))
         log(f"phase 2: injected uniforms, {shape} {dtype} periodic={periodic}: "
             "kernel == plain over 3 sweeps")
-    black = random_black(gen, MAIN_SHAPE, torch.bfloat16, dev)
-    err = max(err, compare_chains(black, SCHEDULE[:2], True, seed=11))
-    log(f"phase 3: Philox mode, {MAIN_SHAPE} bf16: kernel == plain over 2 sweeps")
+        del U
+    for shape in (MAIN_SHAPE, RAGGED_SHAPE):
+        black = random_black(gen, shape, torch.bfloat16, dev)
+        err = max(err, compare_chains(black, SCHEDULE[:2], True, seed=11))
+        log(f"phase 3: Philox mode, {shape} bf16: kernel == plain over 2 sweeps")
 
     phase_statistics(dev)
     log("phase 4: statistics agree with the exact references")
@@ -1440,7 +1462,7 @@ def main() -> int:
     launches = phase_main_path(dev)
     log("phase 5: main path ran through the kernel")
 
-    ms, plain_ms = phase_timing(dev, name)
+    ms, graph1_ms, plain_ms = phase_timing(dev, name)
     log("phase 6: timed")
 
     err2 = phase_batched_exact(dev, gen, cgen)
@@ -1452,7 +1474,7 @@ def main() -> int:
     launches2 = phase_batched_paths(dev)
     log("phase 9: the batched paths ran through the batched kernel")
 
-    ms2, plain_ms2 = phase_timing_batched(dev, name)
+    ms2, graph2_ms, plain_ms2 = phase_timing_batched(dev, name)
     log("phase 10: timed")
 
     err4, n_band, n_differ, err5 = phase_bond_exact(dev, gen, cgen)
@@ -1525,12 +1547,12 @@ def main() -> int:
                  "nomath": 3 * 2 * site}
     print(json.dumps({"kernels": [
         entry("fused_sweep", fused, "tsu_tpu/ops/checkerboard_fused.py:136", launches,
-              max(err, err1s), ms, plain_ms, 3 * 2 * site + 9 * 4,
+              max(err, err1s), ms, plain_ms, 3 * 2 * site + 9 * 4, graph_ms=graph1_ms,
               shard_launches=launches1s, shard_ms=st["K1 shard"],
               shard_plain_ms=st["K1 shard plain"],
               shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4)),
         entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
-              err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4,
+              err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4, graph_ms=graph2_ms,
               replica_sharded_launches=launches2s),
         entry("halfsweep", "tsu_tpu_torch/csrc/checkerboard_halfsweep.cu",
               "tsu_tpu/ops/checkerboard_pallas.py:79", launches3, err3, st["K3"], st["K3 plain"],

@@ -505,6 +505,87 @@ def test_fused_shard_mode_matches_plain_version(cuda, shape, dtype, periodic, ro
     assert fused_sweep.launches == before + 1
 
 
+def _spin_plane(rng, shape, dtype, device, offset=0):
+    """A ±1 plane on the card; with ``offset`` a contiguous view starting
+    that many elements into its buffer, so that it is not aligned to a quad
+    and the kernels take their site-by-site path."""
+    x = torch.as_tensor(np.where(rng.random(shape) < 0.5, 1.0, -1.0), dtype=dtype).to(device)
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=device)
+    view = buf[offset:].view(shape)
+    view.copy_(x)
+    return view
+
+
+def _fused_three_ways(rng, R, C2, dtype, periodic, injected, device, offset=0):
+    """K1, K2 (a batch of 3) and K1's shard mode (the middle and, open, the
+    bottom shard of a lattice of 3R rows) on one plane shape, each against
+    its plain version bit for bit; returns the launches counted."""
+    table = sigmoid_table16(1.0, 0.1, 2.269).to(device)
+
+    def uniforms(*lead):
+        if not injected:
+            return None
+        return torch.as_tensor(rng.integers(0, 1 << 16, (*lead, 2, R, C2)), dtype=torch.int32,
+                               device=device)
+
+    black = _spin_plane(rng, (R, C2), dtype, device, offset)
+    kw = dict(seed=9, sweep=2, periodic=periodic, uniforms=uniforms())
+    got, want = fused_sweep(black, table, **kw), fused_sweep_reference(black, table, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K1"
+
+    blacks = _spin_plane(rng, (3, R, C2), dtype, device, offset)
+    tables = sigmoid_table16(1.0, 0.1, torch.tensor([0.8, 2.269, 4.0])).to(device)
+    keys = sweep_keys([4, 5, 6], 3).to(device)
+    U = uniforms(3)
+    got = fused_sweep_batched(blacks, tables, keys, periodic=periodic, uniforms=U)
+    want = fused_sweep_batched_reference(blacks, tables, keys, periodic=periodic, uniforms=U)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K2"
+
+    for row0 in (R, 2 * R):
+        top, bot = False, row0 == 2 * R
+        up2 = _spin_plane(rng, (2, C2), dtype, device, offset)
+        down2 = (torch.zeros((2, C2), dtype=dtype, device=device) if bot and not periodic
+                 else _spin_plane(rng, (2, C2), dtype, device, offset))
+        UH = None if not injected else tuple(
+            torch.as_tensor(rng.integers(0, 1 << 16, (1, C2)), dtype=torch.int32, device=device)
+            for _ in range(2))
+        kw = dict(seed=7, sweep=1, periodic=periodic, uniforms=uniforms(), up2=up2, down2=down2,
+                  shard_info=(row0, 3 * R, top, bot), uniforms_halo=UH)
+        got, want = fused_sweep(black, table, **kw), fused_sweep_reference(black, table, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), ("shard", row0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C2", [1, 3, 4, 5, 33])
+@pytest.mark.parametrize("R", [2, 6, 10])    # the least R, and two rows either side of an 8-row strip
+def test_fused_kernels_at_narrow_and_ragged_shapes(cuda, R, C2):
+    """The strip body's column edges (a ragged last group, planes narrower
+    than a Philox group or a warp) and row edges (strips taller than the
+    plane, a ragged last strip), both dtypes, periodic and open, injected
+    and Philox, for K1, K2 and the shard mode."""
+    rng = np.random.default_rng(100 * R + C2)
+    before = (fused_sweep.launches, fused_sweep_batched.launches)
+    for dtype in (torch.bfloat16, torch.float32):
+        for periodic in (True, False):
+            for injected in (True, False):
+                _fused_three_ways(rng, R, C2, dtype, periodic, injected, cuda)
+    assert (fused_sweep.launches, fused_sweep_batched.launches) == (before[0] + 24, before[1] + 8)
+
+
+@pytest.mark.parametrize("shape", [(18, 128), (66, 500)])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_fused_kernels_on_planes_not_aligned_for_the_vector_path(cuda, shape, offset):
+    """C2 % 4 == 0 but the planes start at an odd element: the kernels take
+    their site-by-site path and still equal the plain versions."""
+    rng = np.random.default_rng(offset)
+    for dtype in (torch.bfloat16, torch.float32):
+        for periodic in (True, False):
+            for injected in (True, False):
+                _fused_three_ways(rng, *shape, dtype, periodic, injected, cuda, offset=offset)
+
+
 @pytest.mark.parametrize("kernel,rows,cols", [("K1", 4, 1), ("K3", 2, 2), ("K3", 4, 1)])
 @pytest.mark.parametrize("periodic", [True, False])
 def test_sharded_runs_equal_one_shard_on_the_card(cuda, kernel, rows, cols, periodic):

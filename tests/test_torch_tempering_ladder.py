@@ -175,3 +175,29 @@ def test_pt_ground_state_search_with_copies_and_houdayer():
     with pytest.raises(NotImplementedError):
         pt_ground_state_search(1, Jh, Jv, checkpoint_path="ck", device="cpu",
                                **kw)
+
+
+def test_pt_ground_state_search_records_a_best_energy_lowered_by_houdayer(monkeypatch):
+    """A Houdayer move that lowers one replica is recorded at once, not only
+    if the next sweep keeps it: with one iteration, a move at its end and no
+    quench, the lowered state is what the search returns. The move is stubbed
+    to put the first replica of each pair into the ground state of a gauged
+    ferromagnet (±J bonds J_ij = g_i g_j, ground state g, energy -2N)."""
+    from tsu_tpu_torch.samplers import tempering_ladder as ladder
+
+    L = 8
+    g = np.where(np.random.default_rng(4).random((L, L)) < 0.5, 1.0, -1.0).astype(np.float32)
+    Jh, Jv = g * np.roll(g, -1, 1), g * np.roll(g, -1, 0)
+    g_red, g_black = split_checkerboard(torch.from_numpy(g))
+    moved = []
+
+    def to_ground_state(u, r1, b1, r2, b2, periodic):
+        moved.append(r1.shape[0])
+        return (g_red.to(r1.dtype).expand_as(r1), g_black.to(b1.dtype).expand_as(b1), r2, b2)
+
+    monkeypatch.setattr(ladder, "_houdayer", to_ground_state)
+    out = pt_ground_state_search(2, Jh, Jv, temperatures=[1.5, 2.5], n_iters=1, n_copies=2,
+                                 houdayer_every=1, quench_sweeps=0, device="cpu")
+    assert moved == [1]
+    assert out["best_energy"] == -2 * L * L
+    np.testing.assert_array_equal(out["best_state"], g)

@@ -90,3 +90,19 @@ def test_importing_the_tools_pulls_in_no_jax_or_triton_and_builds_nothing():
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.splitlines()[-1]) == {
         "jax": False, "triton": False, "tsu_tpu": False, "built": 0}
+
+
+def test_sass_count_reads_registers_and_spills_from_ptxas():
+    from tsu_tpu_torch.tools import sass_count
+
+    text = (
+        "ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kPf\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers, 36 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z1gPf' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 72 registers, used 0 barriers\n")
+    assert sass_count.ptxas_report(text) == {
+        "_Z1kPf": {"registers": 64, "stack": 16, "spill_stores": 12, "spill_loads": 16},
+        "_Z1gPf": {"registers": 72, "stack": 0, "spill_stores": 0, "spill_loads": 0}}

@@ -206,24 +206,34 @@ def fused_sweep(black: torch.Tensor, table: torch.Tensor, *, seed: int = 0,
         _check_on(black.device, up2=up2, down2=down2, u_top=u_top, u_bot=u_bot)
 
     lib = fused_sweep_library()
-    R, C2 = black.shape
-    red_out = torch.empty_like(black)
-    black_out = torch.empty_like(black)
-    tail = (fold_seed(seed) & MASK32, sweep & MASK32, int(black.dtype == torch.bfloat16),
-            torch.cuda.current_stream(black.device).cuda_stream)
+    k0, k1 = fold_seed(seed) & MASK32, sweep & MASK32
+    stream = torch.cuda.current_stream(black.device).cuda_stream
     u = None if uniforms is None else uniforms.data_ptr()
     with torch.cuda.device(black.device):
-        if shard:
-            err = lib.tsu_fused_sweep_shard(
-                black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(), table.data_ptr(),
-                u, up2.data_ptr(), down2.data_ptr(),
-                None if u_top is None else u_top.data_ptr(),
-                None if u_bot is None else u_bot.data_ptr(), R, C2,
-                *(int(v) for v in shard_info), int(periodic), *tail)
-        else:
-            err = lib.tsu_fused_sweep(
-                black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(),
-                table.data_ptr(), u, R, C2, int(periodic), *tail)
+        if not shard:
+            return _launch(lib.tsu_fused_sweep, black, table.data_ptr(), u, periodic, k0, k1,
+                           stream)
+        R, C2 = black.shape
+        red_out, black_out = torch.empty_like(black), torch.empty_like(black)
+        err = lib.tsu_fused_sweep_shard(
+            black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(), table.data_ptr(),
+            u, up2.data_ptr(), down2.data_ptr(),
+            None if u_top is None else u_top.data_ptr(),
+            None if u_bot is None else u_bot.data_ptr(), R, C2,
+            *(int(v) for v in shard_info), int(periodic), k0, k1,
+            int(black.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"fused sweep kernel launch failed with CUDA error {err}")
+    fused_sweep.launches += 1
+    return red_out, black_out
+
+
+def _launch(launch, black, table_ptr, u_ptr, periodic, k0, k1, stream):
+    """One K1 launch through the library entry ``launch`` on a checked CUDA
+    plane, under its device; returns the new (red, black) planes."""
+    red_out, black_out = torch.empty_like(black), torch.empty_like(black)
+    err = launch(black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(), table_ptr, u_ptr,
+                 *black.shape, int(periodic), k0, k1, int(black.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"fused sweep kernel launch failed with CUDA error {err}")
     fused_sweep.launches += 1
@@ -242,19 +252,36 @@ def fused_sweeps(seed: int, red: torch.Tensor, black: torch.Tensor,
     ``temperature``: a scalar, or an (n_sweeps,) schedule (sweep k runs at
     temperature[k]). ``uniforms``: optional (n_sweeps, 2, R, C2) int32 in
     [0, 2^16). Sweep k draws from the Philox stream (fold_seed(seed), k).
+    On the card the checks, the library, the stream, the key and the table
+    and uniform rows are set up once, so a sweep costs one kernel call and
+    its two output planes; ``fused_sweep.launches`` grows by one per sweep.
     """
     temps = torch.as_tensor(temperature, dtype=torch.float32).cpu().reshape(-1)
     tables = sigmoid_table16(J, field, temps.broadcast_to((n_sweeps,)))
-    tables = tables.to(black.device)
+    tables = tables.to(black.device).contiguous()
     if uniforms is not None:
-        uniforms = torch.as_tensor(uniforms, dtype=torch.int32, device=black.device)
+        uniforms = torch.as_tensor(uniforms, dtype=torch.int32, device=black.device).contiguous()
         if uniforms.shape != (n_sweeps, 2, *black.shape):
             raise ValueError(f"uniforms must be (n_sweeps, 2, R, C2), got "
                              f"{tuple(uniforms.shape)}")
-    for k in range(n_sweeps):
-        red, black = fused_sweep(
-            black, tables[k], seed=seed, sweep=k, periodic=periodic,
-            uniforms=None if uniforms is None else uniforms[k])
+    if black.device.type != "cuda" or n_sweeps == 0:
+        for k in range(n_sweeps):
+            red, black = fused_sweep(
+                black, tables[k], seed=seed, sweep=k, periodic=periodic,
+                uniforms=None if uniforms is None else uniforms[k])
+        return red, black
+    _check(black, tables[0], None if uniforms is None else uniforms[0])
+    _check_on(black.device, black=black)
+    launch = fused_sweep_library().tsu_fused_sweep
+    k0 = fold_seed(seed) & MASK32
+    stream = torch.cuda.current_stream(black.device).cuda_stream
+    table_step = tables.stride(0) * tables.element_size()
+    u_step = 0 if uniforms is None else uniforms.stride(0) * uniforms.element_size()
+    with torch.cuda.device(black.device):
+        for k in range(n_sweeps):
+            red, black = _launch(launch, black, tables.data_ptr() + k * table_step,
+                                 None if uniforms is None else uniforms.data_ptr() + k * u_step,
+                                 periodic, k0, k & MASK32, stream)
     return red, black
 
 

@@ -2,15 +2,15 @@
 
 Counterpart of ``make_kernel(mode)`` in ``scripts/kernel_decomposition.py``,
 which times the TPU's fused kernel against variants of it with progressively
-less work. Here the variants are K1's tile body under a mode template
+less work. Here the variants are K1's strip body under a mode template
 parameter in ``tsu_tpu_torch/csrc/checkerboard_fused.cu``, on K1's grid and
 Philox keys (one word per site, lo16 for red, hi16 for black):
 
 - ``prng_only``: red = +1 where lo16 < 32768, black where hi16 < 32768; the
-  words of the tile's sites only, nothing read;
-- ``prng_grouped``: the same planes from K1's whole draw pattern, including
-  the words it redraws for its red halo (the reference's 8-row-group seeding
-  has no GPU counterpart; its port isolates the halo redraws);
+  words of the sites a strip owns only, nothing read;
+- ``prng_grouped``: the same planes from the strips' draw pattern, including
+  the words K1 redraws for their halo rows (the reference's 8-row-group
+  seeding has no GPU counterpart; its port isolates the halo redraws);
 - ``nomath``: red = +1 where lo16 < (up + centre + down) * 1000 + 32768, the
   black plane's vertical neighbours and centre at the red site (wrapped, or 0
   outside an open lattice), and black = red; no horizontal partner, table or

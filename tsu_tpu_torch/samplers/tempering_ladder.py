@@ -352,7 +352,9 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     many iterations to the coldest ``houdayer_frac`` of the rungs of each
     copy pair (copies 2k and 2k+1). Every iteration sweeps all replicas
     ``n_sweeps`` times, tracks the best energy per replica slot, swaps, then
-    moves clusters; afterwards every slot's best state descends through a
+    moves clusters and tracks the moved slots' energies too (the reference
+    tracks them only after the next sweep, so a move that lowers a replica
+    can be lost there); afterwards every slot's best state descends through a
     batched quench to ``quench_T_final`` and the lowest is returned.
 
     ``seed``: an int or a CPU ``torch.Generator``; the initial planes, the
@@ -388,6 +390,7 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     # Slots of rung j of copies 2k (idx1) and 2k+1 (idx2), j < hd_rungs.
     idx1 = (2 * R * torch.arange(n_pairs)[:, None] + torch.arange(hd_rungs)).reshape(-1).to(dev)
     idx2 = idx1 + R
+    touched = torch.cat([idx1, idx2])
     base = (R * torch.arange(C, device=dev))[:, None]
 
     best_r, best_b = reds, blacks
@@ -413,6 +416,14 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
                                        blacks[idx1], reds[idx2], blacks[idx2], periodic)
             reds = reds.index_put((idx1,), r1).index_put((idx2,), r2)
             blacks = blacks.index_put((idx1,), b1).index_put((idx2,), b2)
+            # A move keeps E1 + E2 but may lower one replica: record it now,
+            # before the next sweep walks away from it.
+            e = ops.energy_planes(reds[touched], blacks[touched])
+            better = (e < best_e[touched])[:, None, None]
+            best_r = best_r.index_put((touched,), torch.where(better, reds[touched], best_r[touched]))
+            best_b = best_b.index_put((touched,),
+                                      torch.where(better, blacks[touched], best_b[touched]))
+            best_e = best_e.index_put((touched,), torch.minimum(e, best_e[touched]))
 
     if quench_sweeps > 0:
         # Every slot's best state descends to its local minimum; B restarts

@@ -11,10 +11,10 @@ Times K1, the fused heat-bath sweep, and its three decomposition variants
 launches captured in one CUDA graph and replayed (a variant may take less
 device time than the host's launch path), with CUDA events. For each it
 prints flips/s and ms per sweep; then the share of K1's time that each part
-removed accounts for: the select chain and second colour (K1 - nomath), the
-staged black and its reads (nomath - prng_grouped), the halo redraws
-(prng_grouped - prng_only), and the floor of Philox, threshold and plane
-writes (prng_only). The last line is one JSON object with every number. It
+removed accounts for: the select chain, shuffles, warp-edge batch and second
+colour (K1 - nomath), the black reads (nomath - prng_grouped), the redraws of
+the strips' halo rows (prng_grouped - prng_only), and the floor of Philox,
+threshold and plane writes (prng_only). The last line is one JSON object with every number. It
 needs a card and writes no file.
 """
 
@@ -34,9 +34,9 @@ from tsu_tpu_torch.tools.timing import card, unit_ms
 
 VARIANTS = ("baseline", "nomath", "prng_grouped", "prng_only")
 PARTS = {   # share of K1's time: (slower variant, faster variant)
-    "select chain and second colour": ("baseline", "nomath"),
-    "staged black and its reads": ("nomath", "prng_grouped"),
-    "halo redraws": ("prng_grouped", "prng_only"),
+    "select chain, shuffles, edges and second colour": ("baseline", "nomath"),
+    "black reads": ("nomath", "prng_grouped"),
+    "halo row redraws": ("prng_grouped", "prng_only"),
     "floor: Philox, threshold, plane writes": ("prng_only", None),
 }
 

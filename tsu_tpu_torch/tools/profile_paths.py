@@ -11,9 +11,11 @@ the wall time, the device busy time and idle share, the count and device
 time of the port's kernels, the host's kernel launches and their host time,
 and the operations with the most device time. Busy time sums only the
 events whose ``device_type`` is CUDA: ``key_averages()`` lists a kernel's
-time a second time under the CPU operation that launched it. Then it times the host path of one batched
-launch: wrapper calls on one 2x2 lattice, whose kernel the card finishes at
-once, on the host clock. ``--out DIR`` writes the profiler's tables to
+time a second time under the CPU operation that launched it. Then it times
+the host path of one launch on the host clock, at a 2x2 lattice whose kernel
+the card finishes at once: a batched sweep (``fused_sweeps_keyed``), one
+``fused_sweep`` wrapper call, and one sweep of ``fused_sweeps``, which sets up
+its launches once per call. ``--out DIR`` writes the profiler's tables to
 DIR/profile_paths.txt. The last line is one JSON object with every number
 printed.
 """
@@ -32,7 +34,12 @@ import torch
 from tsu_tpu_torch import IsingGrid, demonstrate_phase_transition
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
-from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps, fused_sweeps_keyed, sigmoid_table16
+from tsu_tpu_torch.ops.checkerboard_fused import (
+    fused_sweep,
+    fused_sweeps,
+    fused_sweeps_keyed,
+    sigmoid_table16,
+)
 from tsu_tpu_torch.parallel import make_mesh, parallel_tempering_replica_sharded
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.tools.bench import ea_codes
@@ -137,19 +144,32 @@ def profile_path(fn, tables: list) -> dict:
     }
 
 
-def host_launch_us(dev, n: int = 2000) -> float:
-    """Host time of one batched-sweep wrapper call at a size the card
-    finishes at once."""
-    planes = torch.ones((1, 2, 1), dtype=torch.bfloat16, device=dev)
-    tables = sigmoid_table16(1.0, 0.0, torch.tensor([2.0])).to(dev)
-    keys = sweep_keys([1], np.arange(n)[:, None]).to(dev)
-    fused_sweeps_keyed(planes, planes, tables, keys[:10])
+def _host_us(run, n: int) -> float:
+    """Host-clock us per unit of ``run(n)``, after a warm-up of 10."""
+    run(10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fused_sweeps_keyed(planes, planes, tables, keys)
+    run(n)
     us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def host_launch_us(dev, n: int = 2000) -> dict:
+    """Host time of one launch at a size the card finishes at once: a
+    batched sweep, a ``fused_sweep`` wrapper call, and a sweep of
+    ``fused_sweeps`` (the headline's loop)."""
+    planes = torch.ones((1, 2, 1), dtype=torch.bfloat16, device=dev)
+    tables = sigmoid_table16(1.0, 0.0, torch.tensor([2.0])).to(dev)
+    keys = sweep_keys([1], np.arange(n)[:, None]).to(dev)
+    table = tables[0].contiguous()
+
+    def wrapper(m):
+        for k in range(m):
+            fused_sweep(planes[0], table, seed=1, sweep=k)
+    return {"batched": _host_us(lambda m: fused_sweeps_keyed(planes, planes, tables, keys[:m]), n),
+            "fused_sweep": _host_us(wrapper, n),
+            "fused_sweeps": _host_us(lambda m: fused_sweeps(1, planes[0], planes[0], 2.0, m), n)}
 
 
 def main(argv=None) -> int:
@@ -173,7 +193,9 @@ def main(argv=None) -> int:
         for key, count, ms in r["top_device_ops"]:
             print(f"    {ms:9.3f} ms  {count:6d}  {key}")
     result["host_launch_us"] = host_launch_us(dev)
-    print(f"host path of one batched launch: {result['host_launch_us']:.2f} us")
+    h = result["host_launch_us"]
+    print(f"host path of one launch: batched {h['batched']:.2f} us, fused_sweep "
+          f"{h['fused_sweep']:.2f} us, a sweep of fused_sweeps {h['fused_sweeps']:.2f} us")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_paths.txt"), "w") as f:

@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with the CUDA toolkit:
 
-    python3 -m tsu_tpu_torch.tools.sass_count [--sass FILE ...] [--out DIR]
+    python3 -m tsu_tpu_torch.tools.sass_count [--sass FILE ...] [--out DIR] [--ptxas]
 
 With no ``--sass`` it builds the four kernel libraries (``ops/_build.py``)
 and disassembles them with ``cuobjdump -sass``; ``--sass`` reads such dumps
@@ -21,7 +21,9 @@ These are static counts of the compiled code: the longest path is the path
 a thread takes when every optional step runs (a whole group of four sites,
 every branch of the site loop), so an instruction-per-site figure derived
 from them is an estimate of the work the card issues, not a measurement.
-``--out DIR`` writes the dumps there.
+``--out DIR`` writes the dumps there. ``--ptxas`` compiles each source once
+more with ``-Xptxas -v`` and prints every kernel's registers, stack frame
+and spill bytes as ptxas reports them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 _FUNC = re.compile(r"Function : (\S+)")
@@ -142,10 +145,47 @@ def dump_libraries(out_dir=None) -> dict:
     return dumps
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads}} from the
+    output of ``nvcc -Xptxas -v``."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := _PTXAS_SPILL.search(line)):
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := _PTXAS_REGS.search(line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_libraries() -> dict:
+    """Compile every kernel source with -Xptxas -v: {library: report}."""
+    from tsu_tpu_torch.ops import _build
+
+    out = {}
+    for lib in LIBRARIES:
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                                   str(Path(tmp, "lib.so")), str(_build._CSRC / f"{lib}.cu")],
+                                  check=True, capture_output=True, text=True)
+        out[lib] = ptxas_report(proc.stderr)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass", nargs="*", help="cuobjdump -sass listings to read")
     ap.add_argument("--out", help="directory for the listings")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="also print registers and spills from nvcc -Xptxas -v")
     args = ap.parse_args(argv)
     dumps = ({Path(p).stem: Path(p).read_text() for p in args.sass} if args.sass
              else dump_libraries(args.out))
@@ -159,6 +199,12 @@ def main(argv=None) -> int:
                 print(f"    loop {lp['range'][0]}-{lp['range'][1]}: {lp['instructions']} "
                       f"instructions, longest path {lp['longest_path']} "
                       f"({lp['longest_path_int32']} int32)")
+    if args.ptxas:
+        for lib, kernels in ptxas_libraries().items():
+            for name, r in kernels.items():
+                print(f"ptxas {lib} {name}: {r.get('registers')} registers, {r.get('stack', 0)} B "
+                      f"stack, {r.get('spill_stores', 0)} B spill stores, "
+                      f"{r.get('spill_loads', 0)} B spill loads")
     return 0
 
 
