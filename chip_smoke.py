@@ -43,6 +43,8 @@ Phases, each of which raises on failure:
     schedule rows, injected over 3 sweeps and Philox over 2, bit for bit;
     K4 continuous at 4096^2 f32 with Gaussian bonds and a field, half-sweep
     by half-sweep, equal outside the stated band (its size printed); K4 at
+    4096x4094 (C/2 = 2047, the kernel's site-by-site path), discrete bf16
+    periodic and continuous f32 open, injected and Philox; K4 at
     1002x1000 f32 open in both modes; K5 discrete at 284 x 256^2 (a ladder of
     142 rungs x 2 copies) and 64 x 256^2 bf16, injected and Philox; and
     element b of one K5 launch against K4 under the matching key;
@@ -57,10 +59,10 @@ Phases, each of which raises on failure:
     launches), build_tempering_ladder at 256^2 then pt_ground_state_search
     with 2 copies and Houdayer moves (K5 only); and each at 16x16 equal on
     cuda and on cpu;
-14. bond kernel and plain times per half-sweep: K4 discrete at 4096^2 bf16,
-    K4 continuous at 4096^2 f32, K5 discrete at 284 x 256^2 bf16; the
-    kernel's time from a CUDA graph of 1000 launches (the JSON line's
-    "ms") and launched one by one;
+14. bond kernel and plain times per half-sweep: K4 discrete at 4096^2 bf16
+    and at 4096x4094, K4 continuous at 4096^2 f32, K5 discrete at
+    284 x 256^2 and 64 x 256^2 bf16; the kernel's time from a CUDA graph of
+    1000 launches (the JSON line's "ms") and launched one by one;
 15. the resident kernel (K6 at one table, K7 over a schedule, each one
     launch per call) against its plain version, bit for bit: injected
     uniforms over 3 sweeps at 4096^2 bf16 periodic and at 1002x1000 f32
@@ -106,7 +108,8 @@ Phases, each of which raises on failure:
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s;
 the eight TPU kernels K1-K8 and their CUDA counterparts; K1 and K2 also
-carry graph_ms, their time from a CUDA graph)
+carry graph_ms, their time from a CUDA graph, K4 its time at 4096x4094 and
+K5 at 64 x 256^2)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
@@ -700,6 +703,28 @@ def phase_bond_exact(dev, gen, cgen):
         f"half-sweeps: equal outside the band |u - p| <= {CONTINUOUS_BAND}; {n_band} of "
         f"{4 * R * C // 2} site updates in the band, {n_differ} of them differ")
 
+    # C/2 = 2047: the kernel's site-by-site path, a ragged last group and a
+    # warp past the plane's edge.
+    R, C = RAGGED_SHAPE
+    Jh, Jv = pm1_bonds(gen, RAGGED_SHAPE)
+    codes = pack_bond_codes(color_bond_weights(Jh.to(dev), Jv.to(dev), 0.0, True))
+    steps = [(c, bond_key(80, c, k), {"table": tables[k]}) for k in range(2) for c in (0, 1)]
+    black = random_black(gen, RAGGED_SHAPE, torch.bfloat16, dev)
+    U = torch.randint(0, 1 << 24, (4, R, C // 2), generator=cgen, device=dev, dtype=torch.int32)
+    for u in (U, None):
+        err4 = max(err4, compare_bond_halves(black, codes, steps, True, u)[0])
+    Jh, Jv = gauss_bonds(gen, RAGGED_SHAPE)
+    field = 0.3 * torch.randn(RAGGED_SHAPE, generator=gen)
+    weights = color_bond_weights(Jh.to(dev), Jv.to(dev), field.to(dev), False)
+    steps = [(c, bond_key(81, c, k), {"temperature": 1.5}) for k in range(2) for c in (0, 1)]
+    black = random_black(gen, RAGGED_SHAPE, torch.float32, dev)
+    for u in (U, None):
+        e, b, d = compare_bond_halves(black, weights, steps, False, u)
+        err4, n_band, n_differ = max(err4, e), n_band + b, n_differ + d
+    del U
+    log(f"phase 11: K4 at {RAGGED_SHAPE} (C/2 = {C // 2}): discrete bf16 periodic == plain and "
+        "continuous f32 open == plain outside the band, over 2 sweeps, injected and Philox")
+
     R, C = 1002, 1000
     for mode in ("codes", "continuous"):
         if mode == "codes":
@@ -946,19 +971,28 @@ def phase_bond_timing(dev, name):
     black = random_black(gen, MAIN_SHAPE, torch.float32, dev)
     kw = dict(temperature=1.5, key=lambda k: (6, k))
     t["K4 continuous"] = timings(bond_halfsweep, bond_halfsweep_reference, black, weights, kw)
+    codes = pack_bond_codes(color_bond_weights(*(x.to(dev) for x in pm1_bonds(gen, RAGGED_SHAPE))))
+    black = random_black(gen, RAGGED_SHAPE, torch.bfloat16, dev)
+    kw = dict(table=table, key=lambda k: (7, k))
+    t["K4 discrete 4096x4094"] = timings(bond_halfsweep, bond_halfsweep_reference, black, codes, kw)
     codes = pack_bond_codes(color_bond_weights(*(x.to(dev) for x in pm1_bonds(gen, PT_SHAPE))))
-    temps = np.tile(np.geomspace(0.3, 2.0, LADDER_BATCH // 2), 2)
-    tables = sigmoid_table(1.0, 0.0, torch.tensor(temps, dtype=torch.float32)).to(dev)
-    keys = bond_sweep_keys(np.arange(LADDER_BATCH), 500).to(dev).reshape(1000, LADDER_BATCH, 2)
-    blacks = random_black(gen, (LADDER_BATCH, *PT_SHAPE), torch.bfloat16, dev)
+    for what, B, temps in (
+            ("K5 discrete", LADDER_BATCH, np.tile(np.geomspace(0.3, 2.0, LADDER_BATCH // 2), 2)),
+            ("K5 discrete 64 x 256^2", PT_RUNGS, np.geomspace(1.2, 2.0, PT_RUNGS))):
+        tables = sigmoid_table(1.0, 0.0, torch.tensor(temps, dtype=torch.float32)).to(dev)
+        keys = bond_sweep_keys(np.arange(B), 500).to(dev).reshape(1000, B, 2)
+        blacks = random_black(gen, (B, *PT_SHAPE), torch.bfloat16, dev)
 
-    def batched(fn):
-        return lambda o, w, update_red, k: fn(o, w, keys[k], update_red=update_red, tables=tables)
-    kw = dict(k=lambda k: k)
-    t["K5 discrete"] = timings(batched(bond_halfsweep_batched),
-                               batched(bond_halfsweep_batched_reference), blacks, codes, kw)
+        def batched(fn, keys=keys, tables=tables):
+            return lambda o, w, update_red, k: fn(o, w, keys[k], update_red=update_red,
+                                                  tables=tables)
+        t[what] = timings(batched(bond_halfsweep_batched),
+                          batched(bond_halfsweep_batched_reference), blacks, codes,
+                          dict(k=lambda k: k))
     n_sites = {"K4 discrete": sites, "K4 continuous": sites,
-               "K5 discrete": LADDER_BATCH * PT_SHAPE[0] * PT_SHAPE[1] // 2}
+               "K4 discrete 4096x4094": RAGGED_SHAPE[0] * RAGGED_SHAPE[1] // 2,
+               "K5 discrete": LADDER_BATCH * PT_SHAPE[0] * PT_SHAPE[1] // 2,
+               "K5 discrete 64 x 256^2": PT_RUNGS * PT_SHAPE[0] * PT_SHAPE[1] // 2}
     for what, (ms, eager_ms, plain_ms) in t.items():
         n = n_sites[what]
         log(f"timing {what} on {name}: kernel {ms:.6f} ms/half-sweep ({n / ms * 1e3:.4e} site "
@@ -1521,6 +1555,8 @@ def main() -> int:
     B, Rb, Cb = ENSEMBLE
     batched_site = B * Rb * Cb // 2
     ladder_site = LADDER_BATCH * PT_SHAPE[0] * PT_SHAPE[1] // 2
+    pt_site = PT_RUNGS * PT_SHAPE[0] * PT_SHAPE[1] // 2
+    ragged_site = RAGGED_SHAPE[0] * RAGGED_SHAPE[1] // 2
     S = RESIDENT_SWEEPS
     fused = "tsu_tpu_torch/csrc/checkerboard_fused.cu"
     shard_site = SHARD[0] * SHARD[1] // 2
@@ -1567,10 +1603,17 @@ def main() -> int:
               continuous_ms=bond_times["K4 continuous"][0],
               continuous_plain_ms=bond_times["K4 continuous"][2],
               continuous_bound_ms=bound_ms(7 * 4 * site),
-              continuous_band_sites=n_band, continuous_band_differ=n_differ),
+              continuous_band_sites=n_band, continuous_band_differ=n_differ,
+              ms_4096x4094=bond_times["K4 discrete 4096x4094"][0],
+              plain_ms_4096x4094=bond_times["K4 discrete 4096x4094"][2],
+              bound_ms_4096x4094=bound_ms(5 * ragged_site + 9 * 4)),
         entry("bond_halfsweep_batched", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:320",
               launches5, err5, bond_times["K5 discrete"][0], bond_times["K5 discrete"][2],
-              4 * ladder_site + PT_SHAPE[0] * PT_SHAPE[1] // 2 + LADDER_BATCH * 11 * 4),
+              4 * ladder_site + PT_SHAPE[0] * PT_SHAPE[1] // 2 + LADDER_BATCH * 11 * 4,
+              ms_64x256x256=bond_times["K5 discrete 64 x 256^2"][0],
+              plain_ms_64x256x256=bond_times["K5 discrete 64 x 256^2"][2],
+              bound_ms_64x256x256=bound_ms(4 * pt_site + PT_SHAPE[0] * PT_SHAPE[1] // 2
+                                           + PT_RUNGS * 11 * 4)),
         entry("resident_sweeps", resident, "tsu_tpu/ops/checkerboard_resident.py:56", launches6,
               err6, rt["K6"], rt["K6 plain"], (4 * 2 * site + 9 * 4) / S),
         entry("resident_anneal", resident, "tsu_tpu/ops/checkerboard_resident.py:219", launches7,

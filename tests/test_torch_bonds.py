@@ -221,6 +221,47 @@ def test_continuous_halfsweep_equals_jax_kernel_outside_the_band(periodic, wdtyp
     assert band.sum() <= 2
 
 
+@pytest.mark.parametrize("C2", [1, 3, 5, 33])
+@pytest.mark.parametrize("R", [8, 16])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("mode", ["codes", "continuous"])
+def test_halfsweep_equals_jax_kernel_at_narrow_and_ragged_widths(mode, periodic, R, C2):
+    """The widths where the CUDA kernel's strip body takes its edge cases (a
+    plane narrower than a Philox group, a ragged last group, a warp past the
+    plane's edge), on injected 24-bit uniforms, red on 8 rows and black on
+    16: the discrete mode on code planes bit for bit, the continuous mode
+    (Gaussian bonds and a field, T = 1.5) outside CONTINUOUS_BAND."""
+    update_red = R == 8
+    color = "red" if update_red else "black"
+    Jh, Jv, f = _bonds(20 + C2, "zeros" if mode == "codes" else "gauss", (R, 2 * C2))
+    jw = jbonds.color_bond_weights(Jh, Jv, f, periodic)
+    other = split_checkerboard(torch.from_numpy(_spins(21 + C2, (R, 2 * C2))))[
+        1 if update_red else 0].contiguous()
+    U = _u24(22 + C2, (R, C2))
+    o = jnp.asarray(other.numpy())
+    halo = (o[-1:], o[:1]) if periodic else (jnp.zeros_like(o[:1]),) * 2
+    kw = dict(update_red=update_red, periodic=periodic, uniforms=torch.from_numpy(U))
+    if mode == "codes":
+        T = T_DISCRETE[0]
+        jcodes = jbonds.pack_bond_codes(jw)
+        with pltpu.force_tpu_interpret_mode():
+            want = jpallas.halfsweep_bonds_pallas(jnp.int32(0), T, o, *halo, jcodes[color],
+                                                  update_red=update_red, u24=jnp.asarray(U),
+                                                  block_rows=8, discrete=True, packed=True)
+        codes = bond_weights_from_numpy({c: np.asarray(v) for c, v in jcodes.items()})[color]
+        got = bond_halfsweep_reference(other, codes, table=sigmoid_table(1.0, 0.0, T), **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    with pltpu.force_tpu_interpret_mode():
+        want = jpallas.halfsweep_bonds_pallas(jnp.int32(0), 1.5, o, *halo, tuple(jw[color]),
+                                              update_red=update_red, u24=jnp.asarray(U),
+                                              block_rows=8)
+    w = bond_weights_from_numpy({c: tuple(map(np.asarray, jw[c])) for c in jw})[color]
+    got = bond_halfsweep_reference(other, w, temperature=1.5, **kw)
+    band = continuous_band(other, w, temperature=1.5, **kw).numpy()
+    assert not ((got.numpy() != np.asarray(want)) & ~band).any()
+
+
 def test_generator_sweeps_reach_the_cold_and_hot_limits():
     """The generator-driven plain sweep: at T -> 0 with ferromagnetic bonds a
     sweep aligns every spin with its neighbours' majority; at T = 1e9 the

@@ -505,17 +505,24 @@ def test_fused_shard_mode_matches_plain_version(cuda, shape, dtype, periodic, ro
     assert fused_sweep.launches == before + 1
 
 
+def _placed(x, device, offset=0):
+    """x on the card; with ``offset`` a contiguous view that many elements
+    into its buffer, not aligned for the kernels' vector path."""
+    x = x.to(device)
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def _spin_plane(rng, shape, dtype, device, offset=0):
     """A ±1 plane on the card; with ``offset`` a contiguous view starting
     that many elements into its buffer, so that it is not aligned to a quad
     and the kernels take their site-by-site path."""
-    x = torch.as_tensor(np.where(rng.random(shape) < 0.5, 1.0, -1.0), dtype=dtype).to(device)
-    if not offset:
-        return x
-    buf = torch.empty(x.numel() + offset, dtype=dtype, device=device)
-    view = buf[offset:].view(shape)
-    view.copy_(x)
-    return view
+    return _placed(torch.as_tensor(np.where(rng.random(shape) < 0.5, 1.0, -1.0), dtype=dtype),
+                   device, offset)
 
 
 def _fused_three_ways(rng, R, C2, dtype, periodic, injected, device, offset=0):
@@ -584,6 +591,112 @@ def test_fused_kernels_on_planes_not_aligned_for_the_vector_path(cuda, shape, of
         for periodic in (True, False):
             for injected in (True, False):
                 _fused_three_ways(rng, *shape, dtype, periodic, injected, cuda, offset=offset)
+
+
+def _bond_kernels_both_ways(rng, R, C2, dtype, periodic, injected, mode, device, offset=0):
+    """K4 over two sweeps and K5 (a batch of 3) over one, half-sweep by
+    half-sweep from one shared input, both colours, each against its plain
+    version: discrete bit for bit, continuous outside CONTINUOUS_BAND. With
+    ``offset`` every operand is a view at that element offset."""
+    w = _bond_weights(int(rng.integers(1 << 30)), R, 2 * C2, mode, periodic, device)
+    w = {c: _placed(v, device, offset) if isinstance(v, torch.Tensor)
+         else tuple(_placed(x, device, offset) for x in v) for c, v in w.items()}
+
+    def uniforms(*lead):
+        if not injected:
+            return None
+        return _placed(torch.as_tensor(rng.integers(0, 1 << 24, (*lead, R, C2)),
+                                       dtype=torch.int32), device, offset)
+
+    other = _spin_plane(rng, (R, C2), dtype, device, offset)
+    for k, T in enumerate([0.7, 3.0]):
+        for color in (0, 1):
+            U = uniforms()
+            kw = dict(update_red=color == 0, key=(11 + color, k), periodic=periodic, uniforms=U)
+            kw.update({"table": sigmoid_table(1.0, 0.0, T).to(device)} if mode == "codes"
+                      else {"temperature": T})
+            wc = w["red" if color == 0 else "black"]
+            got = bond_halfsweep(other, wc, **kw)
+            band = None if mode == "codes" else continuous_band(
+                other, wc, update_red=color == 0, temperature=T, key=kw["key"], periodic=periodic,
+                uniforms=U)
+            _assert_bond_equal(got, bond_halfsweep_reference(other, wc, **kw), band)
+            other = _placed(got, device, offset)
+
+    others = _spin_plane(rng, (3, R, C2), dtype, device, offset)
+    temps = torch.tensor([0.5, 1.2, 3.0], device=device)
+    mode_kw = ({"tables": sigmoid_table(1.0, 0.0, temps.cpu()).to(device)} if mode == "codes"
+               else {"temperatures": temps})
+    keys = bond_sweep_keys([7, 8, 9], 1)[0].to(device)
+    for color in (0, 1):
+        U = uniforms(3)
+        wc = w["red" if color == 0 else "black"]
+        kw = dict(update_red=color == 0, periodic=periodic, uniforms=U, **mode_kw)
+        got = bond_halfsweep_batched(others, wc, keys[color], **kw)
+        band = None if mode == "codes" else continuous_band(
+            others, wc, update_red=color == 0, temperature=temps, key=keys[color],
+            periodic=periodic, uniforms=U)
+        _assert_bond_equal(got, bond_halfsweep_batched_reference(others, wc, keys[color], **kw),
+                           band)
+        others = _placed(got, device, offset)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C2", [1, 3, 4, 5, 33, 128, 129])
+@pytest.mark.parametrize("R", [2, 6, 10])    # the least R, and two rows either side of an 8-row strip
+def test_bond_kernels_at_narrow_and_ragged_shapes(cuda, R, C2):
+    """The bond strip body's column edges (a ragged last group, planes
+    narrower than a Philox group or a warp, one warp wide, a warp past the
+    plane's edge) and row edges (strips taller than the plane, a ragged last
+    strip): K4 and K5, both dtypes, periodic and open, injected and Philox,
+    codes with zero bonds and continuous float32 and bfloat16 weights."""
+    rng = np.random.default_rng(100 * R + C2)
+    before = (bond_halfsweep.launches, bond_halfsweep_batched.launches)
+    for dtype in (torch.bfloat16, torch.float32):
+        for periodic in (True, False):
+            for injected in (True, False):
+                for mode in ("codes", "f32", "bf16"):
+                    _bond_kernels_both_ways(rng, R, C2, dtype, periodic, injected, mode, cuda)
+    assert (bond_halfsweep.launches, bond_halfsweep_batched.launches) == (
+        before[0] + 96, before[1] + 48)
+
+
+@pytest.mark.parametrize("shape", [(18, 128), (66, 500)])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_bond_kernels_on_planes_not_aligned_for_the_vector_path(cuda, shape, offset):
+    """C2 % 4 == 0 but the planes, codes, weights and uniforms start at an odd
+    element: K4 and K5 take their site-by-site path and still equal the plain
+    versions."""
+    rng = np.random.default_rng(offset)
+    for dtype in (torch.bfloat16, torch.float32):
+        for periodic in (True, False):
+            for injected in (True, False):
+                for mode in ("codes", "f32", "bf16"):
+                    _bond_kernels_both_ways(rng, *shape, dtype, periodic, injected, mode, cuda,
+                                            offset=offset)
+
+
+@pytest.mark.parametrize("mode", ["codes", "f32"])
+def test_batched_bond_kernel_element_equals_single_lattice_kernel_one_warp_wide(cuda, mode):
+    """At C2 = 128 one warp spans the row and the rotation of its lanes
+    carries the horizontal wrap: K5's element b is K4 under b's key and
+    temperature or table row."""
+    B, R, C = 3, 64, 256
+    w = _bond_weights(12, R, C, mode, True, cuda)["black"]
+    others = _blacks(13, B, R, C, torch.bfloat16, cuda)
+    temps = torch.tensor([0.6, 1.4, 2.2])
+    keys = bond_sweep_keys([3, 5, 7], 2)[1, 1].to(cuda)
+    if mode == "codes":
+        tables = sigmoid_table(1.0, 0.0, temps).to(cuda)
+        outs = bond_halfsweep_batched(others, w, keys, update_red=False, tables=tables)
+    else:
+        outs = bond_halfsweep_batched(others, w, keys, update_red=False,
+                                      temperatures=temps.to(cuda))
+    for b in range(B):
+        key = tuple(int(x) & 0xFFFFFFFF for x in keys[b])
+        mode_kw = ({"table": tables[b]} if mode == "codes" else {"temperature": float(temps[b])})
+        one = bond_halfsweep(others[b], w, update_red=False, key=key, **mode_kw)
+        assert torch.equal(one, outs[b]), b
 
 
 @pytest.mark.parametrize("kernel,rows,cols", [("K1", 4, 1), ("K3", 2, 2), ("K3", 4, 1)])

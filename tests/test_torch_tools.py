@@ -1,7 +1,7 @@
 """The port's measurement tools on the CPU: the headline bench,
 kernel_bench and kernel_decomposition run at 64^2 when asked for the CPU and
-raise without a card otherwise; importing the tools imports no JAX or Triton
-and builds nothing."""
+raise without a card otherwise, as bond_bodies does; importing the tools
+imports no JAX or Triton and builds nothing."""
 
 import json
 import subprocess
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tsu_tpu_torch.config import ConfigurationError
-from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition
+from tsu_tpu_torch.tools import bench, bond_bodies, kernel_bench, kernel_decomposition
 
 REPO = Path(__file__).resolve().parents[1]
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ea_bond_flips_per_s"}   # bench.py's
@@ -56,6 +56,7 @@ def test_kernel_bench_check_gives_moments():
                         "--trials", "1"]),
     lambda: kernel_bench.main(["all", "--size", "64", "--sweeps", "2", "--iters", "1"]),
     lambda: kernel_decomposition.main(["--size", "64", "--sweeps", "2"]),
+    lambda: bond_bodies.main(["--rounds", "1"]),
 ])
 def test_tools_without_a_card_raise(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -78,7 +79,7 @@ def test_importing_the_tools_pulls_in_no_jax_or_triton_and_builds_nothing():
         "import json, sys\n"
         "import tsu_tpu_torch.tools.bench, tsu_tpu_torch.tools.kernel_bench\n"
         "import tsu_tpu_torch.tools.kernel_decomposition, tsu_tpu_torch.tools.profile_paths\n"
-        "import tsu_tpu_torch.tools.timing\n"
+        "import tsu_tpu_torch.tools.timing, tsu_tpu_torch.tools.bond_bodies\n"
         "from tsu_tpu_torch.ops import _build\n"
         "libs = (_build.fused_sweep_library, _build.bond_sweep_library,\n"
         "        _build.resident_sweep_library)\n"
@@ -106,3 +107,40 @@ def test_sass_count_reads_registers_and_spills_from_ptxas():
     assert sass_count.ptxas_report(text) == {
         "_Z1kPf": {"registers": 64, "stack": 16, "spill_stores": 12, "spill_loads": 16},
         "_Z1gPf": {"registers": 72, "stack": 0, "spill_stores": 0, "spill_loads": 0}}
+
+
+def test_sass_count_gives_the_bond_kernels_rows_per_site():
+    """A bond kernel's innermost loop is one row of a thread's four sites,
+    and a bond kernel whose name fixes its strip height (TR = 8) is the
+    whole strip unrolled: the report adds their int32 instructions per site,
+    for the bond kernels only. The unguarded branch to itself that pads a
+    kernel's end is no loop."""
+    from tsu_tpu_torch.tools import sass_count
+
+    body = (
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;\n"
+        "        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;\n"
+        "        /*0020*/                   LOP3.LUT R3, R2, 0x3, RZ, 0xc0, !PT ;\n"
+        "        /*0030*/                   STG.E [R4.64], R3 ;\n"
+        "        /*0040*/                   ISETP.GE.AND P0, PT, R2, 0x8, PT ;\n"
+        "        /*0050*/              @!P0 BRA 0x10 ;\n"
+        "        /*0060*/                   EXIT ;\n")
+    text = ("        Function : _Z21bond_halfsweep_kernelPf\n" + body
+            + "        Function : _Z18fused_sweep_kernelPf\n" + body)
+    got = sass_count.report(sass_count.parse(text))
+    (bond,) = got["_Z21bond_halfsweep_kernelPf"]["loops"]
+    assert bond == {"range": ["0x10", "0x50"], "instructions": 5, "longest_path": 5,
+                    "longest_path_int32": 3, "int32_per_site": 0.75}
+    (fused,) = got["_Z18fused_sweep_kernelPf"]["loops"]
+    assert "int32_per_site" not in fused
+
+    unrolled = (
+        "        Function : _Z21bond_halfsweep_kernelILi8EEEvPf\n"
+        "        /*0000*/                   IADD3 R2, R2, 0x1, RZ ;\n"
+        "        /*0010*/                   LOP3.LUT R3, R2, 0x3, RZ, 0xc0, !PT ;\n"
+        "        /*0020*/                   STG.E [R4.64], R3 ;\n"
+        "        /*0030*/                   EXIT ;\n"
+        "        /*0040*/                   BRA 0x40 ;\n")
+    got = sass_count.report(sass_count.parse(unrolled))["_Z21bond_halfsweep_kernelILi8EEEvPf"]
+    assert got["loops"] == [] and got["longest_path"] == 4 and got["rows"] == 8
+    assert got["int32_per_site"] == 2 / 32

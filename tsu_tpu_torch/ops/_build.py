@@ -34,9 +34,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str, sources: tuple[str, ...]) -> Path:
-    """Build ``sources`` (file names under csrc/) into a shared library,
-    unless a build of the same sources, headers and flags exists; return its
-    path."""
+    """Build ``sources`` (file names under csrc/, or paths elsewhere that
+    include its headers) into a shared library, unless a build of the same
+    sources, headers and flags exists; return its path."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (*sources, *sorted(p.name for p in _CSRC.glob("*.cuh"))):
         digest.update((_CSRC / src).read_bytes())
@@ -49,7 +49,8 @@ def library_path(name: str, sources: tuple[str, ...]) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in sources)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp,
+               *(str(_CSRC / s) for s in sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
@@ -108,8 +109,13 @@ def halfsweep_library() -> ctypes.CDLL:
 def bond_sweep_library() -> ctypes.CDLL:
     """The bond half-sweep kernel library (the single-lattice and the
     batched kernel), built and loaded once per process."""
-    lib = ctypes.CDLL(str(library_path("checkerboard_bonds",
-                                       ("checkerboard_bonds.cu",))))
+    return bond_library(library_path("checkerboard_bonds", ("checkerboard_bonds.cu",)))
+
+
+def bond_library(path) -> ctypes.CDLL:
+    """Load a build of a version of ``checkerboard_bonds.cu`` and declare
+    its two C entries."""
+    lib = ctypes.CDLL(str(path))
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.tsu_bond_halfsweep.argtypes = [p, p, p, p, p, p, p, i, i, f, p, p, i, i, i, i, u, u, p]
     lib.tsu_bond_halfsweep.restype = i

@@ -42,7 +42,8 @@ from tsu_tpu_torch.ops.checkerboard_fused import MAX_BATCH, _check_on, sigmoid_t
 from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words, sweep_keys
 
 CONTINUOUS_BAND = 1e-6   # |u - p| within which implementations may disagree
-MAX_ROWS = 8 * 65535     # the kernels' grid: 8 rows per block, gridDim.y <= 65535
+MAX_ROWS = 8 * 65535     # K3's grid (8 rows per block, gridDim.y <= 65535); the bond
+                         # kernels' grid (4 strips of >= 8 rows per block) holds 4x more
 _DTYPES = (torch.float32, torch.bfloat16)
 _U24_SCALE = 1.0 / 16777216.0
 

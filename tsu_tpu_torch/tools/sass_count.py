@@ -15,7 +15,13 @@ back edge left out. Beside each count is the part that issues to the int32
 pipe (IMAD, IADD3, LOP3, SHF, LEA, ISETP, SEL, PRMT and the other integer
 opcodes; uniform-datapath U* instructions, loads, stores, conversions and
 control are not counted there). A loop-free kernel reports its longest path
-from entry to exit.
+from entry to exit (the unguarded branch to itself that pads the end of
+every kernel is no loop). The bond kernels (K4, K5) walk a strip of rows, a
+row of a thread's four sites at a time: for them the longest path is also
+given per row and its int32 part per site, from the innermost loop (weight
+planes) or, where the template argument TR of the mangled name fixes the
+strip at TR rows and the row loop is unrolled (codes), from the whole
+kernel over TR rows, its set-up included.
 
 These are static counts of the compiled code: the longest path is the path
 a thread takes when every optional step runs (a whole group of four sites,
@@ -45,6 +51,17 @@ _INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", 
             "POPC", "ICMP", "ISCADD", "IDP", "IMUL")
 LIBRARIES = ("checkerboard_fused", "checkerboard_bonds", "checkerboard_resident",
              "checkerboard_halfsweep")
+# K4 and K5 (by a part of their names) walk a strip of rows, a row of a
+# thread's four sites at a time.
+STRIP_KERNEL, SITES_PER_ROW = "bond_halfsweep", 4
+_FIXED_ROWS = re.compile(r"Li(\d+)EEEv")     # the last template argument, int TR
+
+
+def fixed_rows(name: str) -> int:
+    """The strip height TR fixed by a strip kernel's mangled name (its row
+    loop unrolled), or 0."""
+    m = _FIXED_ROWS.search(name)
+    return int(m.group(1)) if m else 0
 
 
 def is_int32(op: str) -> bool:
@@ -104,8 +121,8 @@ def longest_path(ins: list, lo: int, hi: int) -> tuple:
 def loops(ins: list) -> list:
     """Innermost loops as (head, branch address): backward branches whose
     range holds no other backward branch."""
-    back = [(t, a) for a, _, op, args in ins
-            if (t := _target(op, args)) is not None and t <= a]
+    back = [(t, a) for a, pred, op, args in ins
+            if (t := _target(op, args)) is not None and (t < a or t == a and pred)]
     return [(h, b) for h, b in back
             if not any(h <= h2 and b2 <= b and (h2, b2) != (h, b) for h2, b2 in back)]
 
@@ -119,12 +136,18 @@ def report(funcs: dict) -> dict:
                  "int32": sum(is_int32(x[2]) for x in ins), "loops": []}
         for head, branch in loops(ins):
             n, n_int = longest_path(ins, head, branch)
-            entry["loops"].append({"range": [hex(head), hex(branch)],
-                                   "instructions": sum(head <= x[0] <= branch for x in ins),
-                                   "longest_path": n, "longest_path_int32": n_int})
+            loop = {"range": [hex(head), hex(branch)],
+                    "instructions": sum(head <= x[0] <= branch for x in ins),
+                    "longest_path": n, "longest_path_int32": n_int}
+            if STRIP_KERNEL in name:
+                loop["int32_per_site"] = n_int / SITES_PER_ROW
+            entry["loops"].append(loop)
         if not entry["loops"]:
             entry["longest_path"], entry["longest_path_int32"] = longest_path(
                 ins, ins[0][0], ins[-1][0])
+            if STRIP_KERNEL in name and (rows := fixed_rows(name)):
+                entry["rows"] = rows
+                entry["int32_per_site"] = entry["longest_path_int32"] / (rows * SITES_PER_ROW)
         out[name] = entry
     return out
 
@@ -193,12 +216,16 @@ def main(argv=None) -> int:
         for name, r in report(parse(text)).items():
             print(f"{lib} {name}: {r['instructions']} instructions ({r['int32']} int32)")
             if "longest_path" in r:
+                rows = (f"; {r['rows']} rows unrolled: {r['longest_path'] / r['rows']:.1f} "
+                        f"per row, {r['int32_per_site']:.2f} int32 per site" if "rows" in r else "")
                 print(f"    no loop; longest path {r['longest_path']} "
-                      f"({r['longest_path_int32']} int32)")
+                      f"({r['longest_path_int32']} int32){rows}")
             for lp in r["loops"]:
+                per_row = (f" per row, {lp['int32_per_site']:.2f} int32 per site"
+                           if "int32_per_site" in lp else "")
                 print(f"    loop {lp['range'][0]}-{lp['range'][1]}: {lp['instructions']} "
                       f"instructions, longest path {lp['longest_path']} "
-                      f"({lp['longest_path_int32']} int32)")
+                      f"({lp['longest_path_int32']} int32){per_row}")
     if args.ptxas:
         for lib, kernels in ptxas_libraries().items():
             for name, r in kernels.items():
