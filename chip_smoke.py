@@ -66,9 +66,11 @@ Phases, each of which raises on failure:
 15. the resident kernel (K6 at one table, K7 over a schedule, each one
     launch per call) against its plain version, bit for bit: injected
     uniforms over 3 sweeps at 4096^2 bf16 periodic and at 1002x1000 f32
-    open, Philox mode over 2 sweeps at 4096^2 bf16; each decomposition
-    variant of K1 (K8: prng_only, prng_grouped, nomath) against its plain
-    version at 4096^2 bf16, injected and Philox;
+    open, Philox mode over 2 sweeps at 4096^2 and 8192^2 bf16, and both
+    modes at the tiles' edge cases: 4x4 periodic bf16 and f32 (bands of one
+    row), 130x250 f32 open (C/2 = 125, a ragged last word) and 4096^2 f32;
+    each decomposition variant of K1 (K8: prng_only, prng_grouped, nomath)
+    against its plain version at 4096^2 bf16, injected and Philox;
 16. resident statistics: 4x4 through K6 against exact enumeration, 512^2
     at T = 2.0 through K6 against Onsager's magnetization, K7's 64^2
     anneal below -1.85 per site, and kernel_bench's --check moments of K6
@@ -80,7 +82,11 @@ Phases, each of which raises on failure:
     schedule from T = 5 to 0.05, with launch counts (one K6 launch per
     resident_sweeps call, one K7 launch per anneal);
 18. K6 and K7 ms per sweep at 4096^2 bf16 (a 500-sweep call / 500) beside
-    K1's and the plain versions', and each K8 variant's ms per sweep;
+    K1's and the plain versions', in turns with the grid-stride body of
+    csrc/checkerboard_resident_gridstride.cu (old, new, new, old); the
+    grid (blocks, dynamic shared bytes a block, rows a band); the
+    cost of the barriers and halo exchanges (K6 on one row a block); and
+    each K8 variant's ms per sweep;
 19. the exact-sigmoid half-sweep (K3) against its plain version, half-sweep
     by half-sweep, equal outside the stated band (its size printed), injected
     24-bit uniforms and Philox: 4096^2 f32 periodic, 4096^2 bf16, 1002x1000
@@ -106,10 +112,12 @@ Phases, each of which raises on failure:
     card, halo exchange included, on each mesh.
 
 The last two lines are a JSON line per kernel (its time, launches, error,
-plain version's time and its bound: the bytes it must move over 3.35 TB/s;
-the eight TPU kernels K1-K8 and their CUDA counterparts; K1 and K2 also
-carry graph_ms, their time from a CUDA graph, K4 its time at 4096x4094 and
-K5 at 64 x 256^2)
+plain version's time and its bound: the bytes it must move over 3.35 TB/s,
+or for K6 and K7 the int32 instructions of their Philox calls over the
+card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
+and their CUDA counterparts; K1 and K2 also carry graph_ms, their time from
+a CUDA graph, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
+grid-stride body's time, the barrier cost and the grid)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
@@ -164,10 +172,11 @@ from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_anneal,
     resident_anneal_tables,
     resident_anneal_tables_reference,
-    resident_grid_blocks,
+    resident_grid,
     resident_sweeps,
     resident_sweeps_table,
     resident_sweeps_table_reference,
+    tile_bounds,
 )
 from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
@@ -188,7 +197,7 @@ from tsu_tpu_torch.samplers import (
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
-from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition
+from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition, resident_bodies
 from tsu_tpu_torch.tools.timing import card, graph_ms, host_ms
 from tsu_tpu_torch.tools.timing import event_ms as time_sweeps
 
@@ -202,6 +211,12 @@ EA_GS_DENSITY = -1.4015                  # 2-D +-J EA ground-state energy per si
 RESIDENT_SWEEPS = 500                    # sweeps per timed resident call (kernel_bench's depth)
 BENCH = dict(sweeps=5000, ea_sweeps=1000, calls=3, n_trials=3)   # tools.bench's defaults
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory rate
+INT32_OPS_PER_S = 132 * 64 * 1.98e9      # H100 SXM int32 lanes: 132 SMs x 64 x 1.98 GHz
+PHILOX_INT32 = 40                        # int32 instructions of one Philox4x32-10 call in the
+                                         # resident kernel's SASS (10 rounds of two IMAD.WIDE.U32
+                                         # and two LOP3; the key schedule runs on uniform registers)
+RESIDENT_SHAPES = (((4, 4), torch.bfloat16, True), ((4, 4), torch.float32, True),
+                   ((130, 250), torch.float32, False), ((4096, 4096), torch.float32, True))
 SHARD = (1024, 4096)                     # one of 4 row shards of MAIN_SHAPE
 RAGGED_SHAPE = (4096, 4094)              # full width with C/2 = 2047, not a multiple of 4
 
@@ -1026,6 +1041,28 @@ def compare_resident(red, black, periodic, uniforms) -> tuple:
     return tuple(errs)
 
 
+def compare_resident_philox(red, black, periodic) -> tuple:
+    """K6 and K7 over 2 sweeps in Philox mode against their plain versions;
+    raise unless equal bit for bit. Returns the max abs difference of (K6,
+    K7)."""
+    table = sigmoid_table(1.0, 0.0, 2.269).to(black.device)
+    tables = sigmoid_table(1.0, 0.0, torch.tensor([2.269, 1.5])).to(black.device)
+    errs = []
+    for what, got, want in (
+            ("K6", resident_sweeps_table(13, red, black, table, 2, periodic=periodic),
+             resident_sweeps_table_reference(13, red, black, table, 2, periodic=periodic)),
+            ("K7", resident_anneal_tables(14, red, black, tables, periodic=periodic),
+             resident_anneal_tables_reference(14, red, black, tables, periodic=periodic))):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} != plain in Philox mode: {int((a != b).sum())} "
+                                     f"sites differ (shape {tuple(black.shape)}, {black.dtype}, "
+                                     f"periodic={periodic})")
+        errs.append(max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    return tuple(errs)
+
+
 def phase_resident_exact(dev, gen, cgen):
     """Phase 15; returns the max abs errors of K6, K7 and K8."""
     err6 = err7 = 0.0
@@ -1040,22 +1077,25 @@ def phase_resident_exact(dev, gen, cgen):
         err6, err7 = max(err6, e6), max(err7, e7)
         log(f"phase 15: injected uniforms, {shape} {dtype} periodic={periodic}: K6 and K7 == "
             "plain over 3 sweeps, one launch each")
-    red, black = (random_black(gen, MAIN_SHAPE, torch.bfloat16, dev) for _ in range(2))
-    table = sigmoid_table(1.0, 0.0, 2.269).to(dev)
-    tables = sigmoid_table(1.0, 0.0, torch.tensor([2.269, 1.5])).to(dev)
-    for what, got, want in (
-            ("K6", resident_sweeps_table(13, red, black, table, 2),
-             resident_sweeps_table_reference(13, red, black, table, 2)),
-            ("K7", resident_anneal_tables(14, red, black, tables),
-             resident_anneal_tables_reference(14, red, black, tables))):
-        for a, b in zip(got, want):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{what} != plain in Philox mode: {int((a != b).sum())} "
-                                     "sites differ")
-            e = float((a.float() - b.float()).abs().max())
-            err6, err7 = (max(err6, e), err7) if what == "K6" else (err6, max(err7, e))
-    torch.cuda.synchronize()
-    log(f"phase 15: Philox mode, {MAIN_SHAPE} bf16: K6 and K7 == plain over 2 sweeps")
+    for shape in (MAIN_SHAPE, (8192, 8192)):
+        e6, e7 = compare_resident_philox(*(random_black(gen, shape, torch.bfloat16, dev)
+                                           for _ in range(2)), True)
+        err6, err7 = max(err6, e6), max(err7, e7)
+        log(f"phase 15: Philox mode, {shape} bf16: K6 and K7 == plain over 2 sweeps")
+    # The tiles' edge cases: bands of one row that wrap onto themselves,
+    # a ragged last word (C/2 = 125) on an open lattice, f32 at full size.
+    for shape, dtype, periodic in RESIDENT_SHAPES:
+        red, black = (random_black(gen, shape, dtype, dev) for _ in range(2))
+        U = torch.randint(0, 1 << 24, (3, 2, shape[0], shape[1] // 2), generator=cgen,
+                          device=dev, dtype=torch.int32)
+        e6, e7 = compare_resident(red, black, periodic, U)
+        del U
+        f6, f7 = compare_resident_philox(red, black, periodic)
+        err6, err7 = max(err6, e6, f6), max(err7, e7, f7)
+        plan = resident_grid(shape[0], shape[1] // 2, dtype)
+        log(f"phase 15: {shape} {dtype} periodic={periodic} ({plan.bands} bands x {plan.ranges} "
+            f"ranges of at most {plan.rows} rows): K6 and K7 == plain, injected over 3 sweeps "
+            "and Philox over 2")
 
     err8 = 0.0
     black = random_black(gen, MAIN_SHAPE, torch.bfloat16, dev)
@@ -1166,31 +1206,63 @@ def phase_tools(dev):
 
 
 def phase_resident_timing(dev, name, k1_ms, k1_plain_ms, dec):
-    """Phase 18; returns ms per sweep {K6, K7, K6 plain, K7 plain, K8 plain
-    per mode}."""
+    """Phase 18; returns ms per sweep {K6, K7, their plain versions, the
+    grid-stride body's K6 and K7, K6 on one row per block (the barriers),
+    K8 plain per mode} and the grid."""
     S = RESIDENT_SWEEPS
     gen = torch.Generator().manual_seed(19)
     red, black = (random_black(gen, MAIN_SHAPE, torch.bfloat16, dev) for _ in range(2))
     table = sigmoid_table(1.0, 0.0, 2.269).to(dev)
     tables = sigmoid_table(1.0, 0.0, torch.from_numpy(make_schedule(5.0, 0.05, S))).to(dev)
+    barrier = resident_bodies.barrier_shape(dev)
+    small = tuple(random_black(gen, barrier, torch.bfloat16, dev) for _ in range(2))
+    gridstride = resident_bodies.gridstride_library()
+
+    def old(*args):
+        return resident_bodies.gridstride_sweeps(gridstride, *args)
+
     resident_sweeps_table(1, red, black, table, 2)
+    old(1, red, black, table, 2)
     resident_sweeps_table_reference(1, red, black, table, 1)   # the plain version's first call
-    t = {"K6": time_sweeps(lambda n: resident_sweeps_table(2, red, black, table, n), S),
-         "K7": time_sweeps(lambda n: resident_anneal_tables(3, red, black, tables[:n]), S),
-         "K6 plain": time_sweeps(lambda n: resident_sweeps_table_reference(
-             4, red, black, table, n), 4),
-         "K7 plain": time_sweeps(lambda n: resident_anneal_tables_reference(
-             5, red, black, tables[:n]), 4)}
+    t = {}
+    # The grid-stride body and this one in turns: old, new, new, old.
+    for turn in ("old", "new", "new", "old"):
+        if turn == "old":
+            t.setdefault("K6 gridstride", []).append(time_sweeps(
+                lambda n: old(2, red, black, table, n), S))
+            t.setdefault("K7 gridstride", []).append(time_sweeps(
+                lambda n: old(3, red, black, tables[:n], n), S))
+        else:
+            t.setdefault("K6 runs", []).append(time_sweeps(
+                lambda n: resident_sweeps_table(2, red, black, table, n), S))
+            t.setdefault("K7 runs", []).append(time_sweeps(
+                lambda n: resident_anneal_tables(3, red, black, tables[:n]), S))
+    t["K6"], t["K7"] = t["K6 runs"][0], t["K7 runs"][0]
+    t["barrier"] = time_sweeps(lambda n: resident_sweeps_table(2, *small, table, n), S)
+    t["K6 plain"] = time_sweeps(lambda n: resident_sweeps_table_reference(
+        4, red, black, table, n), 4)
+    t["K7 plain"] = time_sweeps(lambda n: resident_anneal_tables_reference(
+        5, red, black, tables[:n]), 4)
     for mode in MODES:
         t[f"K8 {mode} plain"] = time_sweeps(lambda n: [decomposition_sweep_reference(
             mode, black, seed=6, sweep=k) for k in range(n)], 20)
-    blocks = resident_grid_blocks(*red.shape)
+    plan = resident_grid(MAIN_SHAPE[0], MAIN_SHAPE[1] // 2, torch.bfloat16)
+    rows = [nr for _, nr, _, _ in tile_bounds(plan, MAIN_SHAPE[0], MAIN_SHAPE[1] // 2)]
+    t["grid"] = {"blocks": plan.blocks, "bands": plan.bands, "ranges": plan.ranges,
+                 "smem_bytes": plan.smem_bytes, "rows_per_band": [min(rows), max(rows)]}
     sites = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     log(f"timing {MAIN_SHAPE} bf16 periodic on {name}: K6 {t['K6']:.6f} ms/sweep "
-        f"({sites / t['K6'] * 1e3:.4e} flips/s, one launch of {S} sweeps, {blocks} blocks of "
-        f"256), K7 {t['K7']:.6f} ms/sweep ({S}-sweep schedule); K1 {k1_ms:.6f} ms/sweep "
-        f"(phase 6); plain K6 {t['K6 plain']:.6f}, K7 {t['K7 plain']:.6f}, K1 "
-        f"{k1_plain_ms:.6f} ms/sweep")
+        f"({sites / t['K6'] * 1e3:.4e} flips/s, one launch of {S} sweeps), K7 {t['K7']:.6f} "
+        f"ms/sweep ({S}-sweep schedule); K1 {k1_ms:.6f} ms/sweep (phase 6): K6 "
+        f"{'below' if t['K6'] < k1_ms else 'NOT below'} K1; plain K6 {t['K6 plain']:.6f}, "
+        f"K7 {t['K7 plain']:.6f}, K1 {k1_plain_ms:.6f} ms/sweep")
+    log(f"timing K6/K7 in turns with the grid-stride body (old, new, new, old): K6 "
+        f"{t['K6 runs']} vs {t['K6 gridstride']}, K7 {t['K7 runs']} vs {t['K7 gridstride']} "
+        "ms/sweep")
+    log(f"resident grid at {MAIN_SHAPE}: {plan.blocks} blocks ({plan.bands} bands x "
+        f"{plan.ranges} ranges), {plan.smem_bytes} B of dynamic shared "
+        f"memory a block, {min(rows)}-{max(rows)} rows a band; barriers and halo exchange: "
+        f"{t['barrier']:.6f} ms/sweep (K6 at {barrier} bf16, one row a block)")
     for mode in MODES:
         log(f"timing K8 {mode} on {name}: {dec['ms_per_sweep'][mode]:.6f} ms/sweep (a CUDA graph "
             f"of {S}), plain {t[f'K8 {mode} plain']:.6f} ms/sweep; K1 in the same graph "
@@ -1467,9 +1539,10 @@ def main() -> int:
         list(pool.map(lambda build: build(), (_build.fused_sweep_library,
                                               _build.bond_sweep_library,
                                               _build.resident_sweep_library,
+                                              resident_bodies.gridstride_library,
                                               _build.halfsweep_library)))
-    log(f"phase 1: built the fused-sweep, the bond, the resident and the half-sweep kernels in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log("phase 1: built the fused-sweep, the bond, the resident (and its grid-stride body) and "
+        f"the half-sweep kernels in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
     cgen = torch.Generator(device=dev).manual_seed(0)
@@ -1571,6 +1644,17 @@ def main() -> int:
                 "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None,
                 **extra}
 
+    def resident_extra(k):
+        """K6/K7 are bound by operations, not bytes: one Philox call per
+        group of four compact sites per half-step, PHILOX_INT32 int32
+        instructions each, over the card's int32 rate; the byte bound (both
+        planes once per call of S sweeps) stays beside it."""
+        ops = 2 * R * -(-C2 // 4) * PHILOX_INT32
+        return {"bound_ms": ops / INT32_OPS_PER_S * 1e3, "bound_by": "operations",
+                "bytes_bound_ms": bound_ms((4 * 2 * site + 9 * 4 * (S if k == "K7" else 1)) / S),
+                "gridstride_ms": rt[f"{k} gridstride"], "runs_ms": rt[f"{k} runs"],
+                "barrier_ms": rt["barrier"], "grid": rt["grid"]}
+
     # Bytes a unit of work must move: K1 and K2 read black and write red and
     # black (2 B each at bf16) per sweep, K1's shard mode also its four halo
     # rows; K3 reads the other plane and its two halo rows and writes its
@@ -1615,9 +1699,10 @@ def main() -> int:
               bound_ms_64x256x256=bound_ms(4 * pt_site + PT_SHAPE[0] * PT_SHAPE[1] // 2
                                            + PT_RUNGS * 11 * 4)),
         entry("resident_sweeps", resident, "tsu_tpu/ops/checkerboard_resident.py:56", launches6,
-              err6, rt["K6"], rt["K6 plain"], (4 * 2 * site + 9 * 4) / S),
+              err6, rt["K6"], rt["K6 plain"], (4 * 2 * site + 9 * 4) / S, **resident_extra("K6")),
         entry("resident_anneal", resident, "tsu_tpu/ops/checkerboard_resident.py:219", launches7,
-              err7, rt["K7"], rt["K7 plain"], (4 * 2 * site + S * 9 * 4) / S),
+              err7, rt["K7"], rt["K7 plain"], (4 * 2 * site + S * 9 * 4) / S,
+              **resident_extra("K7")),
         entry("decomposition_sweep", fused, "scripts/kernel_decomposition.py:41", launches8,
               err8, dec["ms_per_sweep"]["prng_only"], rt["K8 prng_only plain"],
               dec_bytes["prng_only"],

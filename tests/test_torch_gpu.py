@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tsu_tpu_torch import IsingConfig, IsingGrid
+from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_fused import (
@@ -38,6 +39,7 @@ from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep, halfsweep_band, hal
 from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_anneal_tables,
     resident_anneal_tables_reference,
+    resident_grid,
     resident_sweeps_table,
     resident_sweeps_table_reference,
 )
@@ -370,24 +372,30 @@ def _planes(seed, R, C, dtype, device):
     ((18, 20), torch.float32, False),     # R % 16 != 0
     ((34, 522), torch.bfloat16, False),   # C/2 odd
     ((2, 2), torch.float32, True),        # one compact column
+    ((4, 4), torch.bfloat16, True),       # bands of one row; R = 4 wraps onto itself
+    ((4, 4), torch.float32, True),
+    ((130, 250), torch.float32, False),   # C/2 = 125: a ragged last word, uneven bands
+    ((8192, 8192), torch.bfloat16, True), # 64 MB of bf16 planes, 62-63 rows a band
+    ((4096, 4096), torch.float32, True),
 ])
 @pytest.mark.parametrize("injected", [True, False])
 def test_resident_kernels_match_plain_versions(cuda, shape, dtype, periodic, injected):
-    """K6 (one table, 4 sweeps) and K7 (a 4-sweep schedule) in one launch
-    each, bit for bit against their plain versions; the inputs stay as they
-    were and each call counts one launch."""
+    """K6 (one table) and K7 (a schedule) in one launch each, bit for bit
+    against their plain versions (4 sweeps, 2 at 8192^2); the inputs stay as
+    they were and each call counts one launch."""
     R, C = shape
+    S = 2 if R * C > 1 << 24 else 4
     red, black = _planes(13, R, C, dtype, cuda)
     before = red.clone(), black.clone()
     U = None
     if injected:
-        U = torch.as_tensor(np.random.default_rng(14).integers(0, 1 << 24, (4, 2, R, C // 2)),
+        U = torch.as_tensor(np.random.default_rng(14).integers(0, 1 << 24, (S, 2, R, C // 2)),
                             dtype=torch.int32, device=cuda)
     table = sigmoid_table(0.7, 0.1, 2.3).to(cuda)
-    tables = sigmoid_table(1.0, 0.0, torch.tensor([4.0, 2.0, 1.0, 0.5])).to(cuda)
+    tables = sigmoid_table(1.0, 0.0, torch.tensor([4.0, 2.0, 1.0, 0.5][:S])).to(cuda)
     counts = resident_sweeps_table.launches, resident_anneal_tables.launches
-    got = resident_sweeps_table(21, red, black, table, 4, periodic=periodic, uniforms=U)
-    want = resident_sweeps_table_reference(21, red, black, table, 4, periodic=periodic,
+    got = resident_sweeps_table(21, red, black, table, S, periodic=periodic, uniforms=U)
+    want = resident_sweeps_table_reference(21, red, black, table, S, periodic=periodic,
                                            uniforms=U)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     got = resident_anneal_tables(22, red, black, tables, periodic=periodic, uniforms=U)
@@ -397,6 +405,41 @@ def test_resident_kernels_match_plain_versions(cuda, shape, dtype, periodic, inj
     assert torch.equal(red, before[0]) and torch.equal(black, before[1])
     assert (resident_sweeps_table.launches, resident_anneal_tables.launches) == (
         counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_resident_kernels_take_any_int32_table(cuda, periodic):
+    """Tables with entries at or below 0 and at or past 2^24 (sigmoid_table
+    makes neither) run the kernel's unshifted compare, sweep by sweep beside
+    a 24-bit table: K6 and K7 equal their plain versions bit for bit."""
+    red, black = _planes(17, 130, 250, torch.float32, cuda)
+    odd = torch.tensor([-5, 0, 1 << 24, (1 << 24) + 7, 1 << 23, 3, (1 << 24) - 1, 2**31 - 1,
+                        100], dtype=torch.int32)
+    tables = torch.stack([odd, sigmoid_table(1.0, 0.0, 2.0), odd]).to(cuda)
+    got = resident_anneal_tables(23, red, black, tables, periodic=periodic)
+    want = resident_anneal_tables_reference(23, red, black, tables, periodic=periodic)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = resident_sweeps_table(24, red, black, tables[0], 3, periodic=periodic)
+    want = resident_sweeps_table_reference(24, red, black, tables[0], 3, periodic=periodic)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_resident_kernel_raises_above_the_cards_limit_before_launching(cuda):
+    """A lattice whose tiles do not fit the shared memory of the resident
+    grid raises ConfigurationError, naming the limit, and launches nothing;
+    the shapes the reference admits and the chip shapes plan on this card."""
+    R = C = 16384                                    # 268 M sites
+    red = black = torch.ones((R, C // 2), dtype=torch.bfloat16, device=cuda)
+    table = sigmoid_table(1.0, 0.0, 2.0).to(cuda)
+    counts = resident_sweeps_table.launches, resident_anneal_tables.launches
+    with pytest.raises(ConfigurationError, match="shared memory"):
+        resident_sweeps_table(0, red, black, table, 2)
+    with pytest.raises(ConfigurationError, match="shared memory"):
+        resident_anneal_tables(0, red, black, table.expand(2, 9).contiguous())
+    assert (resident_sweeps_table.launches, resident_anneal_tables.launches) == counts
+    for shape in ((16, 786432 * 2), (4096, 4096), (8192, 8192), (15360, 15360), (1002, 1000)):
+        plan = resident_grid(shape[0], shape[1] // 2, torch.bfloat16, cuda.index or 0)
+        assert plan.blocks <= torch.cuda.get_device_properties(cuda).multi_processor_count * 4
 
 
 def test_resident_kernel_rejects_operands_off_the_device(cuda):

@@ -25,7 +25,12 @@ from tsu_tpu.ops.checkerboard_fused import sigmoid_table as jax_sigmoid_table  #
 import tsu_tpu_torch  # noqa: E402
 from tsu_tpu_torch.ops.checkerboard import plane_energy_batch, split_checkerboard  # noqa: E402
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps, sigmoid_table  # noqa: E402
+from tsu_tpu.ops.checkerboard_resident import resident_fits  # noqa: E402
+from tsu_tpu_torch.config import ConfigurationError  # noqa: E402
+from tsu_tpu_torch.ops import checkerboard_resident as resident_module  # noqa: E402
 from tsu_tpu_torch.ops.checkerboard_resident import (  # noqa: E402
+    TABLE_BYTES,
+    WARP_WORDS,
     resident_anneal,
     resident_anneal_reference,
     resident_anneal_tables,
@@ -33,7 +38,10 @@ from tsu_tpu_torch.ops.checkerboard_resident import (  # noqa: E402
     resident_sweeps,
     resident_sweeps_reference,
     resident_sweeps_table,
+    resident_grid,
+    resident_plan,
     resident_sweeps_table_reference,
+    tile_bounds,
 )
 
 J, FIELD = 0.7, 0.1
@@ -222,3 +230,95 @@ def test_resident_matches_fused_sweeps(periodic):
     m_f, e_f = _moments(fused, (16, 16), 3.0, 1500, 2, periodic)
     assert m_r.mean() == pytest.approx(m_f.mean(), abs=0.02)
     assert e_r.mean() == pytest.approx(e_f.mean(), abs=0.03)
+
+
+# The tile plan of the resident kernel on the card (H100 SXM: 132 SMs, 232,448 B
+# of shared memory a block may opt in to).
+H100_SMS, H100_SMEM = 132, 232448
+CHIP_SHAPES = [(4, 4), (2, 2), (64, 64), (18, 20), (34, 522), (130, 250), (512, 512),
+               (1002, 1000), (4096, 4096), (8192, 8192)]
+
+
+@pytest.mark.parametrize("blocks", [1, 5, 132, 264])
+@pytest.mark.parametrize("shape", CHIP_SHAPES + [(16, 1 << 21), (4096, 4094), (2, 66)])
+def test_resident_plan_puts_every_site_in_one_tile(shape, blocks):
+    """Every row lies in exactly one band and every word of a row in exactly
+    one range; bands and ranges differ by at most one row or word, fit the
+    plan's shared memory, and there are no more tiles than blocks."""
+    R, C2 = shape[0], shape[1] // 2
+    plan = resident_plan(R, C2, blocks, 1 << 40)
+    assert plan is not None and plan.blocks <= blocks and plan.ranges == 1
+    W = -(-C2 // 32)
+    tiles = tile_bounds(plan, R, C2)
+    cover = np.zeros((R, W), dtype=int)
+    for r0, nr, w0, nw in tiles:
+        assert 1 <= nr <= plan.rows and 1 <= nw
+        assert WARP_WORDS * -(-nw // WARP_WORDS) + 2 <= plan.stride
+        cover[r0:r0 + nr, w0:w0 + nw] += 1
+    assert (cover == 1).all()
+    assert max(t[1] for t in tiles) - min(t[1] for t in tiles) <= 1
+    assert plan.smem_bytes == TABLE_BYTES + 2 * (plan.rows + 2) * plan.stride * 4
+
+
+@pytest.mark.parametrize("shape,blocks", [((16, 1 << 21), 132), ((4, 2000), 8), ((14, 1000), 8),
+                                          ((6, 514), 8)])
+def test_resident_plan_splits_rows_into_ranges_when_bands_do_not_fit(shape, blocks):
+    """Below the shared memory whole rows need, the plan cuts rows into
+    ranges of words, each word of a row in exactly one range."""
+    R, C2 = shape[0], shape[1] // 2
+    whole = resident_plan(R, C2, blocks, 1 << 40)
+    smem = min(whole.smem_bytes - 1, H100_SMEM)
+    plan = resident_plan(R, C2, blocks, smem)
+    assert plan is not None and plan.ranges > 1 and plan.smem_bytes <= smem
+    W = -(-C2 // 32)
+    cover = np.zeros((R, W), dtype=int)
+    for r0, nr, w0, nw in tile_bounds(plan, R, C2):
+        cover[r0:r0 + nr, w0:w0 + nw] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_resident_plan_admits_every_shape_the_reference_admits(itemsize):
+    """Every shape the reference's resident kernel runs fits the card's
+    plan: R a multiple of its 16-row chunks, planes within resident_fits's 48
+    MB, and the planes as the TPU lays them out in VMEM (C2 padded to 128
+    lanes) within its 128 MB, at the widest C2 of each R."""
+    R = 16
+    while True:
+        C2 = (48 * 2**20) // (2 * R * itemsize)
+        while C2 and -(-C2 // 128) * 128 * 2 * R * itemsize > 128 * 2**20:
+            C2 = (128 * 2**20 // (2 * R * itemsize)) // 128 * 128
+        if C2 < 1:
+            break
+        assert resident_fits(R, C2, itemsize), (R, C2)
+        assert resident_plan(R, C2, H100_SMS, H100_SMEM) is not None, (R, C2)
+        R += 16 if R < 4096 else 4096
+
+
+@pytest.mark.parametrize("shape", CHIP_SHAPES + [(15360, 15360)])
+def test_resident_plan_admits_the_chip_shapes(shape):
+    assert resident_plan(shape[0], shape[1] // 2, H100_SMS, H100_SMEM) is not None
+
+
+@pytest.mark.parametrize("shape", [(16384, 16384), (2, 1 << 28)])
+def test_resident_plan_refuses_lattices_above_the_card(shape):
+    assert resident_plan(shape[0], shape[1] // 2, H100_SMS, H100_SMEM) is None
+
+
+def test_resident_grid_takes_the_most_resident_blocks_and_raises_above_the_limit(monkeypatch):
+    """resident_grid against a stand-in card (132 SMs, up to 2 blocks an SM,
+    one if a block holds more than half an SM's shared memory): the most
+    blocks that stay resident, and ConfigurationError naming the limit."""
+    resident_grid.cache_clear()
+    monkeypatch.setattr(resident_module, "_card_limits", lambda index: (132, 232448))
+    monkeypatch.setattr(resident_module, "_blocks_per_sm",
+                        lambda index, smem, bf16: 2 if smem <= 115 * 1024 else 1)
+    try:
+        plan = resident_grid(4096, 2048)
+        assert (plan.bands, plan.ranges, plan.rows) == (264, 1, 16)
+        plan = resident_grid(15360, 7680)
+        assert (plan.bands, plan.ranges, plan.rows) == (132, 1, 117)
+        with pytest.raises(ConfigurationError, match="232448 B of shared memory"):
+            resident_grid(16384, 8192)
+    finally:
+        resident_grid.cache_clear()

@@ -13,7 +13,14 @@ import pytest
 import torch
 
 from tsu_tpu_torch.config import ConfigurationError
-from tsu_tpu_torch.tools import bench, bond_bodies, kernel_bench, kernel_decomposition
+from tsu_tpu_torch.tools import (
+    bench,
+    bodies,
+    bond_bodies,
+    kernel_bench,
+    kernel_decomposition,
+    resident_bodies,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ea_bond_flips_per_s"}   # bench.py's
@@ -57,6 +64,7 @@ def test_kernel_bench_check_gives_moments():
     lambda: kernel_bench.main(["all", "--size", "64", "--sweeps", "2", "--iters", "1"]),
     lambda: kernel_decomposition.main(["--size", "64", "--sweeps", "2"]),
     lambda: bond_bodies.main(["--rounds", "1"]),
+    lambda: resident_bodies.main(["--rounds", "1", "--sweeps", "2"]),
 ])
 def test_tools_without_a_card_raise(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -80,9 +88,11 @@ def test_importing_the_tools_pulls_in_no_jax_or_triton_and_builds_nothing():
         "import tsu_tpu_torch.tools.bench, tsu_tpu_torch.tools.kernel_bench\n"
         "import tsu_tpu_torch.tools.kernel_decomposition, tsu_tpu_torch.tools.profile_paths\n"
         "import tsu_tpu_torch.tools.timing, tsu_tpu_torch.tools.bond_bodies\n"
+        "import tsu_tpu_torch.tools.resident_bodies, tsu_tpu_torch.tools.bodies\n"
         "from tsu_tpu_torch.ops import _build\n"
+        "from tsu_tpu_torch.ops import checkerboard_resident as cr\n"
         "libs = (_build.fused_sweep_library, _build.bond_sweep_library,\n"
-        "        _build.resident_sweep_library)\n"
+        "        _build.resident_sweep_library, cr.resident_grid, cr._card_limits)\n"
         "print(json.dumps({'jax': 'jax' in sys.modules, 'triton': 'triton' in sys.modules,\n"
         "                  'tsu_tpu': 'tsu_tpu' in sys.modules,\n"
         "                  'built': sum(f.cache_info().currsize for f in libs)}))\n"
@@ -144,3 +154,45 @@ def test_sass_count_gives_the_bond_kernels_rows_per_site():
     got = sass_count.report(sass_count.parse(unrolled))["_Z21bond_halfsweep_kernelILi8EEEvPf"]
     assert got["loops"] == [] and got["longest_path"] == 4 and got["rows"] == 8
     assert got["int32_per_site"] == 2 / 32
+
+
+@pytest.mark.parametrize("names,rounds,want", [
+    (["a", "b"], 2, [(0, "a"), (0, "b"), (1, "b"), (1, "a")]),
+    (["a", "b", "c"], 3, [(0, "a"), (0, "b"), (0, "c"), (1, "c"), (1, "b"), (1, "a"),
+                          (2, "a"), (2, "b"), (2, "c")]),
+    (["a"], 2, [(0, "a"), (1, "a")]),
+])
+def test_body_versions_take_turns_forward_then_backward(names, rounds, want):
+    assert list(bodies.in_turns(names, rounds)) == want
+
+
+def test_build_versions_builds_each_source_under_its_own_name(monkeypatch, tmp_path):
+    """Each source is built as <prefix>_<i> from its absolute path and loaded
+    by the caller's loader; nothing is compiled here."""
+    built = []
+    monkeypatch.setattr(bodies._build, "library_path",
+                        lambda name, sources: built.append((name, sources)) or f"{name}.so")
+    srcs = [str(tmp_path / "a.cu"), "tsu_tpu_torch/csrc/checkerboard_resident.cu"]
+    got = bodies.build_versions(srcs, "resident_body", lambda path: ("lib", path))
+    assert got == {srcs[0]: ("lib", "resident_body_0.so"),
+                   srcs[1]: ("lib", "resident_body_1.so")}
+    assert [name for name, _ in built] == ["resident_body_0", "resident_body_1"]
+    assert all(Path(src[0]).is_absolute() for _, src in built)
+
+
+def test_sass_count_gives_the_resident_kernel_int32_per_site():
+    """An iteration of the resident kernel's item loop updates a lane's eight
+    sites once a sweep: its loops carry int32 per site like the bond
+    kernels' rows."""
+    from tsu_tpu_torch.tools import sass_count
+
+    text = ("        Function : _Z15resident_kernelI13__nv_bfloat16Lb0ELb1EEvPT_\n"
+            "        /*0000*/                   IMAD.WIDE.U32 R2, R2, 0x3, RZ ;\n"
+            "        /*0010*/                   LOP3.LUT R3, R2, 0x3, RZ, 0x96, !PT ;\n"
+            "        /*0020*/                   LDS R4, [R3] ;\n"
+            "        /*0030*/                   ISETP.GE.AND P0, PT, R2, 0x8, PT ;\n"
+            "        /*0040*/              @!P0 BRA 0x0 ;\n"
+            "        /*0050*/                   EXIT ;\n")
+    (loop,) = sass_count.report(sass_count.parse(text))[
+        "_Z15resident_kernelI13__nv_bfloat16Lb0ELb1EEvPT_"]["loops"]
+    assert loop["longest_path_int32"] == 3 and loop["int32_per_site"] == 3 / 8

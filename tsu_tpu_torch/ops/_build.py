@@ -84,12 +84,28 @@ def fused_sweep_library() -> ctypes.CDLL:
 def resident_sweep_library() -> ctypes.CDLL:
     """The resident multi-sweep kernel library (one cooperative launch runs
     S sweeps), built and loaded once per process."""
-    lib = ctypes.CDLL(str(library_path("checkerboard_resident",
-                                       ("checkerboard_resident.cu",))))
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.tsu_resident_sweeps.argtypes = [p, p, p, i, p, i, i, i, i, u, i,
-                                        ctypes.POINTER(ctypes.c_int), p]
-    lib.tsu_resident_sweeps.restype = i
+    return resident_library(library_path("checkerboard_resident",
+                                         ("checkerboard_resident.cu",)))
+
+
+def resident_library(path) -> ctypes.CDLL:
+    """Load a build of a version of ``checkerboard_resident.cu`` and declare
+    its C entries: the banded body's ``tsu_resident_run``,
+    ``tsu_resident_limits`` and ``tsu_resident_occupancy``, or the
+    grid-stride body's ``tsu_resident_sweeps``
+    (``checkerboard_resident_gridstride.cu``)."""
+    lib = ctypes.CDLL(str(path))
+    p, i, u, ip = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.POINTER(ctypes.c_int)
+    if hasattr(lib, "tsu_resident_run"):
+        lib.tsu_resident_run.argtypes = [p, p, p, i, p, i, i, i, i, u, i, i, i, i, i, p, p, p]
+        lib.tsu_resident_run.restype = i
+        lib.tsu_resident_limits.argtypes = [ip, ip, ip]
+        lib.tsu_resident_limits.restype = i
+        lib.tsu_resident_occupancy.argtypes = [i, i, ip]
+        lib.tsu_resident_occupancy.restype = i
+    else:
+        lib.tsu_resident_sweeps.argtypes = [p, p, p, i, p, i, i, i, i, u, i, ip, p]
+        lib.tsu_resident_sweeps.restype = i
     return lib
 
 

@@ -20,18 +20,29 @@ colour) at counter (row, col // 4), or injected as (S, 2, R, C2) int32 in
 [0, 2^24) ([s, 0] drives red, [s, 1] black of sweep s). The reference lacks
 the injected mode.
 
-The JAX functions return new arrays and leave their inputs alone; these clone
-the caller's planes once and update the clone in place. Any even R and
-C >= 2 is accepted: the reference's row-chunk height (``_pick_chunk``) and its
-VMEM and miscompile guard (``resident_fits``) are TPU limits, not carried over.
+The JAX functions return new arrays and leave their inputs alone; these
+return new planes too. The kernel holds the whole lattice on chip as bits,
+a tile of it in each block's shared memory (:func:`resident_plan` cuts it
+into tiles), so the size it takes is a limit of the card: a lattice whose
+tiles do not fit the shared memory of the grid the card keeps resident raises
+``ConfigurationError`` naming the limit (about 240 M sites at 132 blocks of
+227 KB: a 15,500^2 lattice), with no fall-back. Below it any even R and
+C >= 2 is accepted, every shape the reference's kernel runs among them
+(R a multiple of its 16-row chunks, planes within ``resident_fits``'s 48 MB
+and, as the TPU lays them out, within its VMEM); the reference's row-chunk
+height (``_pick_chunk``) and its miscompile guard are TPU limits, not
+carried over. The plain versions take any size.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
+from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.ops._build import resident_sweep_library
 from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half
 from tsu_tpu_torch.ops.checkerboard_fused import _DTYPES, _check_on, sigmoid_table
@@ -95,20 +106,130 @@ def _plain(seed, red, black, tables, n_sweeps, periodic, uniforms):
     return red, black
 
 
+WORD_BITS = 32          # sites per word of a tile
+WARP_WORDS = 8          # words of a row a warp updates at a time
+TABLE_BYTES = 64        # a block's shared memory before its tiles: the 9-entry table
+
+
+@dataclass(frozen=True)
+class ResidentPlan:
+    """How the kernel cuts an (R, C2) lattice into tiles, one per block:
+    ``bands`` bands of rows by ``ranges`` ranges of the ceil(C2 / 32) words
+    of a row, split as evenly as integers allow (:func:`tile_bounds`). A
+    block's shared memory holds the table and both colours' tiles of at most
+    ``rows`` rows plus two halo rows, each row ``stride`` words:
+    ``smem_bytes`` in all."""
+    bands: int
+    ranges: int
+    rows: int
+    stride: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.bands * self.ranges
+
+
+def resident_plan(R: int, C2: int, blocks: int, smem_per_block: int):
+    """The tiling of an (R, C2) lattice over at most ``blocks`` blocks of
+    ``smem_per_block`` bytes of dynamic shared memory, or None if none fits:
+    the fewest ranges of words (one, whole rows, whenever the bands fit),
+    then as many bands of rows as the blocks allow, at most one per row."""
+    W = -(-C2 // WORD_BITS)
+    for ranges in range(1, min(W, blocks) + 1):
+        bands = min(R, blocks // ranges)
+        rows, words = -(-R // bands), -(-W // ranges)
+        stride = WARP_WORDS * -(-words // WARP_WORDS) + 2   # a warp's words past the last, halos
+        smem = TABLE_BYTES + 2 * (rows + 2) * stride * 4
+        if smem <= smem_per_block:
+            return ResidentPlan(bands, ranges, rows, stride, smem)
+    return None
+
+
+def tile_bounds(plan: ResidentPlan, R: int, C2: int) -> list:
+    """[(first row, rows, first word, words)] of every block's tile, in
+    block order, as the kernel computes them."""
+    W = -(-C2 // WORD_BITS)
+    out = []
+    for b in range(plan.blocks):
+        by, bx = divmod(b, plan.ranges)
+        r0, w0 = by * R // plan.bands, bx * W // plan.ranges
+        out.append((r0, (by + 1) * R // plan.bands - r0, w0,
+                    (bx + 1) * W // plan.ranges - w0))
+    return out
+
+
+@functools.cache
+def _card_limits(device_index: int) -> tuple:
+    sms, optin, coop = (ctypes.c_int(0) for _ in range(3))
+    with torch.cuda.device(device_index):
+        err = resident_sweep_library().tsu_resident_limits(
+            ctypes.byref(sms), ctypes.byref(optin), ctypes.byref(coop))
+    if err:
+        raise RuntimeError(f"resident kernel device query failed with CUDA error {err}")
+    if not coop.value:
+        raise ConfigurationError("the resident kernel needs a card that takes cooperative "
+                                 "launches")
+    return sms.value, optin.value
+
+
+def _blocks_per_sm(device_index: int, smem_bytes: int, bf16: bool) -> int:
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = resident_sweep_library().tsu_resident_occupancy(smem_bytes, int(bf16),
+                                                              ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f"resident kernel occupancy query failed with CUDA error {err}")
+    return per_sm.value
+
+
+@functools.cache
+def resident_grid(R: int, C2: int, dtype=torch.bfloat16, device_index: int = 0) -> ResidentPlan:
+    """The plan of the cooperative launch at (R, C2) on a card: the most
+    blocks per SM the card keeps resident with its tiles in shared memory.
+    Raises ``ConfigurationError`` when no plan fits."""
+    sms, optin = _card_limits(device_index)
+    bf16 = dtype == torch.bfloat16
+    limit = optin
+    for per_sm in range(_blocks_per_sm(device_index, 0, bf16), 0, -1):
+        plan = resident_plan(R, C2, per_sm * sms, limit)
+        if plan is not None and plan.blocks <= _blocks_per_sm(device_index, plan.smem_bytes,
+                                                              bf16) * sms:
+            return plan
+    raise ConfigurationError(
+        f"a {R} x {2 * C2} lattice does not fit the resident kernel: its tiles, two bit planes "
+        f"with halos, need more than the {limit} B of shared memory each of this card's "
+        f"{sms} resident blocks may hold (the limit is about {8 * limit * sms // 10**6} M "
+        f"sites); use fused_sweeps")
+
+
 def _launch(seed, red, black, tables, n_sweeps, periodic, uniforms):
-    """Clone the planes and run n_sweeps sweeps on the clone in one
-    cooperative launch; returns (red, black)."""
+    """Run n_sweeps sweeps from (red, black) in one cooperative launch;
+    returns new (red, black)."""
     _check(red, black, tables, n_sweeps, uniforms)
     _check_on(black.device, tables=tables, uniforms=uniforms)
     if red.device != black.device:
         raise ValueError(f"red lies on {red.device}, black on {black.device}")
-    red, black = (torch.clone(x, memory_format=torch.contiguous_format) for x in (red, black))
     R, C2 = red.shape
-    with torch.cuda.device(red.device):
-        err = resident_sweep_library().tsu_resident_sweeps(
+    if n_sweeps == 0:
+        return tuple(torch.clone(x, memory_format=torch.contiguous_format) for x in (red, black))
+    dev = black.device.index if black.device.index is not None else torch.cuda.current_device()
+    plan = resident_grid(R, C2, red.dtype, dev)
+    # The kernel reads black once, before its first grid barrier, and writes
+    # both planes after its last: in place on a copy. Red is recomputed
+    # before it is read, so its copy is never filled.
+    black = torch.clone(black, memory_format=torch.contiguous_format)
+    red = torch.empty_like(black)
+    # Scratch: each colour's edges as bits, and each block's count of
+    # half-steps published.
+    img = torch.empty(2 * R * -(-C2 // WORD_BITS), dtype=torch.int32, device=black.device)
+    flags = torch.zeros(plan.blocks, dtype=torch.int32, device=black.device)
+    with torch.cuda.device(black.device):
+        err = resident_sweep_library().tsu_resident_run(
             red.data_ptr(), black.data_ptr(), tables.data_ptr(), 0 if tables.dim() == 1 else 9,
             None if uniforms is None else uniforms.data_ptr(), n_sweeps, R, C2, int(periodic),
-            fold_seed(seed) & MASK32, int(red.dtype == torch.bfloat16), None,
+            fold_seed(seed) & MASK32, int(red.dtype == torch.bfloat16), plan.bands, plan.ranges,
+            plan.rows, plan.stride, img.data_ptr(), flags.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"resident sweep kernel launch failed with CUDA error {err}")
@@ -235,12 +356,5 @@ def resident_anneal(seed: int, red, black, schedule, *, J: float = 1.0, field: f
 
 def resident_grid_blocks(R: int, C2: int, dtype=torch.bfloat16) -> int:
     """The grid size (blocks) of the cooperative launch at (R, C2) on the
-    current card: as many as the card keeps resident, at most one per 256
-    groups of four sites."""
-    blocks = ctypes.c_int(0)
-    err = resident_sweep_library().tsu_resident_sweeps(
-        None, None, None, 0, None, 0, R, C2, 1, 0, int(dtype == torch.bfloat16),
-        ctypes.byref(blocks), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"resident kernel occupancy query failed with CUDA error {err}")
-    return blocks.value
+    current card: one block per tile of :func:`resident_grid`."""
+    return resident_grid(R, C2, dtype, torch.cuda.current_device()).blocks

@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -41,6 +40,7 @@ from tsu_tpu_torch.ops import checkerboard_bonds_kernel as bk
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds import color_bond_weights, pack_bond_codes
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
+from tsu_tpu_torch.tools.bodies import build_versions, in_turns
 from tsu_tpu_torch.tools.timing import card, graph_ms
 
 TREE_SOURCE = "tsu_tpu_torch/csrc/checkerboard_bonds.cu"
@@ -116,19 +116,17 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
     dev = resolve_device(None)
-    libs = {src: _build.bond_library(_build.library_path(
-        f"bond_body_{i}", (str(Path(src).resolve()),))) for i, src in enumerate(args.sources)}
+    libs = build_versions(args.sources, "bond_body", _build.bond_library)
     work = shapes(dev)
     ms = {src: {label: [] for label in work} for src in libs}
-    for rnd in range(args.rounds):
-        for src in (list(libs) if rnd % 2 == 0 else list(libs)[::-1]):
-            with mock.patch.object(bk, "bond_sweep_library", lambda lib=libs[src]: lib):
-                for label, (kind, other, weights, mode) in work.items():
-                    if rnd == 0:
-                        check(f"{src} {label}", kind, other, weights, mode)
-                    ms[src][label].append(graph_ms(chain(kind, other, weights, mode), 1000))
-            print(f"round {rnd} {src}: " + ", ".join(
-                f"{label} {v[-1]:.6f} ms" for label, v in ms[src].items()), flush=True)
+    for rnd, src in in_turns(libs, args.rounds):
+        with mock.patch.object(bk, "bond_sweep_library", lambda lib=libs[src]: lib):
+            for label, (kind, other, weights, mode) in work.items():
+                if rnd == 0:
+                    check(f"{src} {label}", kind, other, weights, mode)
+                ms[src][label].append(graph_ms(chain(kind, other, weights, mode), 1000))
+        print(f"round {rnd} {src}: " + ", ".join(
+            f"{label} {v[-1]:.6f} ms" for label, v in ms[src].items()), flush=True)
     print(json.dumps({"card": card(), "ms_per_half_sweep": ms}))
     return 0
 

@@ -21,7 +21,10 @@ row of a thread's four sites at a time: for them the longest path is also
 given per row and its int32 part per site, from the innermost loop (weight
 planes) or, where the template argument TR of the mangled name fixes the
 strip at TR rows and the row loop is unrolled (codes), from the whole
-kernel over TR rows, its set-up included.
+kernel over TR rows, its set-up included. For the resident kernel (K6, K7)
+each loop's int32 part is also given per site: its hot loop is one lane's
+eight sites (two Philox groups) in one half-step, so that figure is the
+int32 instructions per site per sweep.
 
 These are static counts of the compiled code: the longest path is the path
 a thread takes when every optional step runs (a whole group of four sites,
@@ -52,8 +55,10 @@ _INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", 
 LIBRARIES = ("checkerboard_fused", "checkerboard_bonds", "checkerboard_resident",
              "checkerboard_halfsweep")
 # K4 and K5 (by a part of their names) walk a strip of rows, a row of a
-# thread's four sites at a time.
+# thread's four sites at a time; an iteration of K6/K7's item loop updates a
+# lane's eight sites (a byte of a word, two Philox groups) once in a sweep.
 STRIP_KERNEL, SITES_PER_ROW = "bond_halfsweep", 4
+RESIDENT_KERNEL, RESIDENT_SITES = "resident_kernel", 8
 _FIXED_ROWS = re.compile(r"Li(\d+)EEEv")     # the last template argument, int TR
 
 
@@ -141,6 +146,8 @@ def report(funcs: dict) -> dict:
                     "longest_path": n, "longest_path_int32": n_int}
             if STRIP_KERNEL in name:
                 loop["int32_per_site"] = n_int / SITES_PER_ROW
+            elif RESIDENT_KERNEL in name:
+                loop["int32_per_site"] = n_int / RESIDENT_SITES
             entry["loops"].append(loop)
         if not entry["loops"]:
             entry["longest_path"], entry["longest_path_int32"] = longest_path(
@@ -221,7 +228,8 @@ def main(argv=None) -> int:
                 print(f"    no loop; longest path {r['longest_path']} "
                       f"({r['longest_path_int32']} int32){rows}")
             for lp in r["loops"]:
-                per_row = (f" per row, {lp['int32_per_site']:.2f} int32 per site"
+                per_row = (f"{' per row,' if STRIP_KERNEL in name else ','} "
+                           f"{lp['int32_per_site']:.2f} int32 per site"
                            if "int32_per_site" in lp else "")
                 print(f"    loop {lp['range'][0]}-{lp['range'][1]}: {lp['instructions']} "
                       f"instructions, longest path {lp['longest_path']} "
