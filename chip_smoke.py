@@ -8,7 +8,8 @@ Run from the repository root:
 Phases, each of which raises on failure:
  1. print the card (nvidia-smi name and power limit), torch and CUDA versions,
     and build the fused-sweep, the bond, the resident and the half-sweep
-    kernels from tsu_tpu_torch/csrc, one nvcc per source, all at once;
+    kernels (and the earlier bodies of the last two) from
+    tsu_tpu_torch/csrc, one nvcc per source, all at once;
  2. kernel against its plain PyTorch version with injected uniforms, bit for
     bit: 3 sweeps over a temperature schedule at 4096^2 bf16 periodic, at
     1002x1000 f32 open and at 4096x4094 bf16 (C/2 = 2047, not a multiple of
@@ -87,11 +88,17 @@ Phases, each of which raises on failure:
     grid (blocks, dynamic shared bytes a block, rows a band); the
     cost of the barriers and halo exchanges (K6 on one row a block); and
     each K8 variant's ms per sweep;
-19. the exact-sigmoid half-sweep (K3) against its plain version, half-sweep
-    by half-sweep, equal outside the stated band (its size printed), injected
-    24-bit uniforms and Philox: 4096^2 f32 periodic, 4096^2 bf16, 1002x1000
-    f32 open, and a 2048x2048 shard (rows 2048.., compact columns 1026..)
-    with random row and column halos; K1's shard mode against its plain
+19. the exact-sigmoid half-sweep (K3) against its first body
+    (csrc/checkerboard_halfsweep_scalar.cu) at every site, the band included,
+    and against its plain version outside the stated band (its size
+    printed), half-sweep by half-sweep, injected 24-bit uniforms and Philox:
+    4096^2 f32 periodic, 4096^2 bf16, 1002x1000 f32 open, three 2048x2048
+    shards (rows 2048.., compact columns 1026.. with random row and column
+    halos; compact columns 1024.. with the columns read in place from a
+    wider plane, strided; the open top-left corner, whose up row and left
+    column are zeros), and R in (2, 6, 10) x C/2 in (1, 3, 4, 5, 33), both
+    dtypes, periodic and open, with and without column halos; K1's shard
+    mode against its plain
     version, bit for bit, on 1024x4096 shards (interior periodic, the top and
     bottom of an open lattice), injected and Philox;
 20. sharded == unsharded at 4096^2, bit for bit at one seed: 4 row shards
@@ -103,20 +110,24 @@ Phases, each of which raises on failure:
 22. this slice's paths at full width, each from zeroed counts, with its wall
     and launch counts: IsingGrid(4096^2).sample_observables(4) on
     make_mesh(rows=4, devices=[cuda:0] * 4) (560 K1 launches) and on rows=2,
-    cols=2 (1,120 K3 launches), and parallel_tempering_replica_sharded with
+    cols=2 (1,120 K3 launches; every column halo a view of the neighbour
+    shard's plane, no copy), and parallel_tempering_replica_sharded with
     64 rungs of 256^2 over replica=4 (1,200 K2 launches); each at 16x16
     equal on cuda and on cpu;
-23. K3 ms per 4096^2 half-sweep (f32 and bf16) from a CUDA graph beside its
-    plain version; K1's shard mode ms per sweep of a 1024x4096 bf16 shard
-    from a CUDA graph; the host time of one sharded sweep at 4096^2 on one
-    card, halo exchange included, on each mesh.
+23. K3 ms per half-sweep at 4096^2 f32 and bf16 and on a 2048x2048 f32
+    shard with strided column halos, from CUDA graphs, in turns with its
+    first body (first, this, this, first), beside its plain version; K1's
+    shard mode ms per sweep of a 1024x4096 bf16 shard from a CUDA graph; the
+    host time of one sharded sweep at 4096^2 on one card, halo exchange
+    included, on each mesh.
 
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
 card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
 and their CUDA counterparts; K1 and K2 also carry graph_ms, their time from
-a CUDA graph, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
+a CUDA graph, K3 its time at bf16 and on the shard and its first body's
+times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
 grid-stride body's time, the barrier cost and the grid)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
@@ -184,6 +195,7 @@ from tsu_tpu_torch.ops.kernel_decomposition import (
     decomposition_sweep_reference,
 )
 from tsu_tpu_torch.parallel import (
+    lattice,
     make_mesh,
     parallel_tempering_replica_sharded,
     sharded_checkerboard_sweeps,
@@ -197,7 +209,13 @@ from tsu_tpu_torch.samplers import (
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
-from tsu_tpu_torch.tools import bench, kernel_bench, kernel_decomposition, resident_bodies
+from tsu_tpu_torch.tools import (
+    bench,
+    halfsweep_bodies,
+    kernel_bench,
+    kernel_decomposition,
+    resident_bodies,
+)
 from tsu_tpu_torch.tools.timing import card, graph_ms, host_ms
 from tsu_tpu_torch.tools.timing import event_ms as time_sweeps
 
@@ -1270,26 +1288,36 @@ def phase_resident_timing(dev, name, k1_ms, k1_plain_ms, dec):
     return t
 
 
-def compare_halfsweeps(other, steps, halos=None, uniforms=None, **where):
-    """K3 and its plain version half-sweep by half-sweep, each step (colour,
-    key) starting from the kernel's last output; the halo rows are the
-    plane's wrap rows (periodic), zeros (open) or ``halos`` (up, down, left,
-    right) of a shard. Raise unless equal outside CONTINUOUS_BAND. Returns
-    (max abs difference outside the band, sites in the band, of them the
-    sites that differ)."""
+def compare_halfsweeps(other, steps, first, halos=None, uniforms=None, **where):
+    """K3, its first body and its plain version half-sweep by half-sweep,
+    each step (colour, key) starting from the kernel's last output; the halo
+    rows are the plane's wrap rows (periodic), zeros (open) or ``halos``
+    (up, down, left, right) of a shard, the columns handed to the first body
+    contiguous. Raise unless K3 equals the first body (``first``, a build of
+    checkerboard_halfsweep_scalar.cu) at every site and the plain version
+    outside CONTINUOUS_BAND. Returns (max abs difference from the plain
+    version outside the band, sites in the band, of them the sites that
+    differ from the plain version)."""
     err, n_band, n_differ = 0.0, 0, 0
     for i, (color, key) in enumerate(steps):
         if halos is None:
             up, down = wrap_halos(other, where["periodic"])
-            cols = {}
+            cols = first_cols = {}
         else:
             up, down, left, right = halos
             cols = dict(left_col=left, right_col=right)
+            first_cols = {k: v.contiguous() for k, v in cols.items()}
         kw = dict(update_red=color == 0, key=key, uniforms=None if uniforms is None else uniforms[i],
-                  temperature=2.269, J=1.0, field=0.1, **cols, **where)
-        got = halfsweep(other, up, down, **kw)
-        want = halfsweep_reference(other, up, down, **kw)
-        band = halfsweep_band(other, up, down, **kw)
+                  temperature=2.269, J=1.0, field=0.1, **where)
+        got = halfsweep(other, up, down, **kw, **cols)
+        old = halfsweep_bodies.body_halfsweep(first, other, up, down, **kw, **first_cols)
+        want = halfsweep_reference(other, up, down, **kw, **cols)
+        band = halfsweep_band(other, up, down, **kw, **cols)
+        if not torch.equal(got, old):
+            raise AssertionError(
+                f"K3 != its first body at half-sweep {i}: {int((got != old).sum())} sites differ "
+                f"(shape {tuple(other.shape)}, {other.dtype}, {where}, "
+                f"injected={uniforms is not None})")
         n_band += int(band.sum())
         n_differ += int(((got != want) & band).sum())
         e = float(((got.float() - want.float()).abs() * ~band).max())
@@ -1304,9 +1332,25 @@ def compare_halfsweeps(other, steps, halos=None, uniforms=None, **where):
     return err, n_band, n_differ
 
 
+def shard_halos(gen, R, C2, dtype, dev, kind):
+    """(up, down, left, right) halos of an (R, C2) shard: random +-1
+    ("random"); the columns read in place from a neighbour plane, strided
+    ("strided"); or, at the open top-left corner of a lattice, a zero up row
+    and a zero left column ("zero")."""
+    up, down = (random_black(gen, (2, 2 * C2), dtype, dev)[:1].contiguous() for _ in range(2))
+    if kind == "strided":
+        wide = random_black(gen, (R, 2 * C2 + 6), dtype, dev)
+        return up, down, wide[:, -1:], wide[:, :1]
+    left, right = (random_black(gen, (R, 2), dtype, dev) for _ in range(2))
+    if kind == "zero":
+        up, left = torch.zeros_like(up), torch.zeros_like(left)
+    return up, down, left, right
+
+
 def phase_halfsweep_exact(dev, gen, cgen):
     """Phase 19; returns (K3 max abs err, band sites, band sites that
     differ, K1 shard-mode max abs err)."""
+    first = halfsweep_bodies.scalar_library()
     steps = [(c, bond_key(90 + k, c, k)) for k in range(2) for c in (0, 1)]
     err3 = n_band = n_differ = 0
     for shape, dtype, periodic in ((MAIN_SHAPE, torch.float32, True),
@@ -1316,25 +1360,47 @@ def phase_halfsweep_exact(dev, gen, cgen):
         U = torch.randint(0, 1 << 24, (4, shape[0], shape[1] // 2), generator=cgen, device=dev,
                           dtype=torch.int32)
         for u in (U, None):
-            e, b, d = compare_halfsweeps(other, steps, uniforms=u, periodic=periodic)
+            e, b, d = compare_halfsweeps(other, steps, first, uniforms=u, periodic=periodic)
             err3, n_band, n_differ = max(err3, e), n_band + b, n_differ + d
         del U
-        log(f"phase 19: K3 {shape} {dtype} periodic={periodic}: kernel == plain outside the "
-            "band over 2 sweeps, injected and Philox")
+        log(f"phase 19: K3 {shape} {dtype} periodic={periodic}: kernel == its first body at every "
+            "site and == plain outside the band over 2 sweeps, injected and Philox")
     R, C2 = MAIN_SHAPE[0] // 2, MAIN_SHAPE[1] // 4   # a shard of a 2 x 2 mesh: 2048x2048
-    row0, col0 = R, C2 + 2                  # the columns start inside a group of four
-    other = random_black(gen, (R, 2 * C2), torch.float32, dev)
-    halos = [random_black(gen, (2, 2 * C2), torch.float32, dev)[:1].contiguous()
-             for _ in range(2)] + [random_black(gen, (R, 2), torch.float32, dev) for _ in range(2)]
-    U = torch.randint(0, 1 << 24, (4, R, C2), generator=cgen, device=dev, dtype=torch.int32)
-    for u in (U, None):
-        e, b, d = compare_halfsweeps(other, steps, halos, u, periodic=True, row0=row0, col0=col0)
-        err3, n_band, n_differ = max(err3, e), n_band + b, n_differ + d
-    del U
-    log(f"phase 19: K3 shard ({R}, {C2}) f32 at rows {row0}.., compact columns {col0}.. with row "
-        "and column halos: kernel == plain outside the band over 2 sweeps, injected and Philox")
+    # The columns start inside a group of four (random halos), on one (the
+    # strided columns of the 2 x 2 path), and the open top-left corner.
+    for kind, row0, col0, periodic in (("random", R, C2 + 2, True), ("strided", R, C2, True),
+                                       ("zero", 0, 0, False)):
+        other = random_black(gen, (R, 2 * C2), torch.float32, dev)
+        halos = shard_halos(gen, R, C2, torch.float32, dev, kind)
+        U = torch.randint(0, 1 << 24, (4, R, C2), generator=cgen, device=dev, dtype=torch.int32)
+        for u in (U, None):
+            e, b, d = compare_halfsweeps(other, steps, first, halos, u, periodic=periodic,
+                                         row0=row0, col0=col0)
+            err3, n_band, n_differ = max(err3, e), n_band + b, n_differ + d
+        del U
+        log(f"phase 19: K3 shard ({R}, {C2}) f32 at rows {row0}.., compact columns {col0}.., "
+            f"{kind} row and column halos: kernel == its first body at every site and == plain "
+            "outside the band over 2 sweeps, injected and Philox")
+    n_narrow = 0
+    for R_, C2_ in ((r, c) for r in (2, 6, 10) for c in (1, 3, 4, 5, 33)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for periodic in (True, False):
+                for kind in (None, "zero" if not periodic else "strided"):
+                    other = random_black(gen, (R_, 2 * C2_), dtype, dev)
+                    halos = None if kind is None else shard_halos(gen, R_, C2_, dtype, dev, kind)
+                    where = dict(periodic=periodic) if kind is None else dict(
+                        periodic=periodic, row0=2 * C2_, col0=C2_ + 1)
+                    U = torch.randint(0, 1 << 24, (2, R_, C2_), generator=cgen, device=dev,
+                                      dtype=torch.int32)
+                    for u in (U, None):
+                        e, b, d = compare_halfsweeps(other, steps[:2], first, halos, u, **where)
+                        err3, n_band, n_differ = max(err3, e), n_band + b, n_differ + d
+                        n_narrow += 1
+    log(f"phase 19: K3 at R in (2, 6, 10) x C/2 in (1, 3, 4, 5, 33), both dtypes, periodic and "
+        f"open, with and without column halos ({n_narrow} cases of a sweep): kernel == its first "
+        "body at every site and == plain outside the band")
     log(f"phase 19: K3 {n_band} site updates in the band |u - p| <= {CONTINUOUS_BAND}, "
-        f"{n_differ} of them differ")
+        f"{n_differ} of them differ from the plain version, none from the first body")
 
     err1 = 0.0
     R, C2 = SHARD[0], SHARD[1] // 2
@@ -1413,6 +1479,34 @@ def phase_sharded_statistics(dev):
         raise AssertionError("sharded 512^2 magnetization differs from Onsager's by more than 0.01")
 
 
+def column_halo_views(run):
+    """Run ``run()`` with the column halo exchange of the sharded paths
+    watched; raise if a column halo between shards of one device is not a
+    view of the neighbour shard's plane (a copy). Returns (output, the views
+    handed out)."""
+    real, views = lattice._halo_exchange_cols, [0]
+
+    def watched(planes, periodic):
+        lefts, rights = real(planes, periodic)
+        m = len(planes[0])
+        for i, row in enumerate(planes):
+            for j, p in enumerate(row):
+                for halo, nj, edge in ((lefts[i][j], (j - 1) % m, j == 0),
+                                       (rights[i][j], (j + 1) % m, j == m - 1)):
+                    if (edge and not periodic) or row[nj].device != p.device:
+                        continue
+                    if halo.untyped_storage().data_ptr() != row[nj].untyped_storage().data_ptr():
+                        raise AssertionError(f"column halo of shard ({i}, {j}) is a copy")
+                    views[0] += 1
+        return lefts, rights
+
+    lattice._halo_exchange_cols = watched
+    try:
+        return run(), views[0]
+    finally:
+        lattice._halo_exchange_cols = real
+
+
 def phase_sharded_paths(dev):
     """Phase 22; returns the launches of K1, K2 and K3 on the paths."""
     cfg = IsingConfig()
@@ -1422,9 +1516,14 @@ def phase_sharded_paths(dev):
     for rows, cols, want in ((4, 1, (4 * sweeps,)), (2, 2, (0,) * 7 + (4 * 2 * sweeps,))):
         mesh = make_mesh(rows=rows, cols=cols, devices=[dev] * 4)
         grid = IsingGrid(MAIN_SHAPE, periodic=True, seed=0, device=dev)
-        obs, c = run_path(f"sample_observables(4) {MAIN_SHAPE} on {rows} x {cols} shards of one "
-                          "card", lambda: grid.sample_observables(4, temperature=2.269, mesh=mesh),
-                          want)
+        (obs, c), views = column_halo_views(lambda: run_path(
+            f"sample_observables(4) {MAIN_SHAPE} on {rows} x {cols} shards of one card",
+            lambda: grid.sample_observables(4, temperature=2.269, mesh=mesh), want))
+        if cols > 1:
+            log(f"sharded sample_observables {rows} x {cols}: {views} column halos, each a view "
+                "of the neighbour shard's plane (no copy)")
+            if views < 2 * 4 * 2 * sweeps:
+                raise AssertionError(f"{views} column halos seen, fewer than the K3 launches need")
         got[(rows, cols)] = c
         e = obs["energy"] / n
         log(f"sharded sample_observables {rows} x {cols}: m {obs['magnetization'].tolist()}, "
@@ -1467,25 +1566,24 @@ def phase_sharded_paths(dev):
 
 
 def phase_sharded_timing(dev, name):
-    """Phase 23; returns ms {K3 f32, K3 bf16, K3 plain, K1 shard, K1 shard
-    plain, host per sharded sweep on rows=4 and on 2 x 2}."""
-    gen = torch.Generator().manual_seed(61)
+    """Phase 23; returns ms {K3 and its first body at 4096^2 f32 and bf16
+    and at a 2048^2 f32 shard, in turns (first, this, this, first); K3
+    plain; K1 shard; K1 shard plain; host per sharded sweep on rows=4 and on
+    2 x 2}."""
+    work = halfsweep_bodies.shapes(dev)
+    libs = {"this": _build.halfsweep_library(), "first": halfsweep_bodies.scalar_library()}
     t = {}
-    for dtype, label in ((torch.float32, "K3"), (torch.bfloat16, "K3 bf16")):
-        other = random_black(gen, MAIN_SHAPE, dtype, dev)
-        up, down = wrap_halos(other, True)
-
-        def go(fn):
-            def run(n):
-                for k in range(n):
-                    fn(other, up, down, update_red=k % 2 == 0, temperature=2.269, key=(3, k))
-            return run
-        go(halfsweep)(4)
-        t[label] = graph_ms(go(halfsweep), 1000)
-        if dtype == torch.float32:
-            go(halfsweep_reference)(2)
-            t["K3 plain"] = time_sweeps(go(halfsweep_reference), 20)
+    for turn in ("first", "this", "this", "first"):
+        for label, w in work.items():
+            t.setdefault(f"{turn} {label}", []).append(
+                graph_ms(halfsweep_bodies.timed(libs[turn], w), 1000))
+    f32, bf16, shard_label = work
+    for key, label in (("K3", f32), ("K3 bf16", bf16), ("K3 shard", shard_label)):
+        t[key], t[f"{key} first"] = t[f"this {label}"][0], t[f"first {label}"][0]
+    halfsweep_bodies.timed(None, work[f32])(2)           # the plain version's first call
+    t["K3 plain"] = time_sweeps(halfsweep_bodies.timed(None, work[f32]), 20)
     R, C2 = SHARD[0], SHARD[1] // 2
+    gen = torch.Generator().manual_seed(61)
     black = random_black(gen, SHARD, torch.bfloat16, dev)
     up2, down2 = (random_black(gen, (2, 2 * C2), torch.bfloat16, dev) for _ in range(2))
     table = sigmoid_table16(1.0, 0.0, 2.269).to(dev)
@@ -1514,9 +1612,14 @@ def phase_sharded_timing(dev, name):
         # The difference of two calls leaves out the scatter and the gather.
         t[f"host {rows}x{cols}"] = (host_ms(run, 101) * 101 - host_ms(run, 1)) / 100
     n = MAIN_SHAPE[0] * MAIN_SHAPE[1] // 2
-    log(f"timing on {name}: K3 {MAIN_SHAPE} f32 {t['K3']:.6f} ms/half-sweep ({n / t['K3'] * 1e3:.4e} "
-        f"site updates/s, a CUDA graph of 1000), bf16 {t['K3 bf16']:.6f}, plain f32 "
-        f"{t['K3 plain']:.6f} ms/half-sweep (20)")
+    for label in work:
+        log(f"timing on {name}: K3 {label} ms/half-sweep from a CUDA graph of 1000, turns "
+            f"(first, this, this, first): this body {t[f'this {label}']}, first body "
+            f"{t[f'first {label}']}")
+    log(f"timing on {name}: K3 {MAIN_SHAPE} f32 {t['K3']:.6f} ms/half-sweep "
+        f"({n / t['K3'] * 1e3:.4e} site updates/s), bf16 {t['K3 bf16']:.6f}, shard "
+        f"{t['K3 shard']:.6f}; first body {t['K3 first']:.6f}, {t['K3 bf16 first']:.6f}, "
+        f"{t['K3 shard first']:.6f}; plain f32 {t['K3 plain']:.6f} ms/half-sweep (20)")
     log(f"timing on {name}: K1 shard mode {SHARD} bf16 {t['K1 shard']:.6f} ms/sweep (a CUDA graph "
         f"of 1000), plain {t['K1 shard plain']:.6f} ms/sweep (20)")
     log(f"timing on {name}: one sharded {MAIN_SHAPE} sweep on one card, host clock, halo exchange "
@@ -1540,9 +1643,10 @@ def main() -> int:
                                               _build.bond_sweep_library,
                                               _build.resident_sweep_library,
                                               resident_bodies.gridstride_library,
-                                              _build.halfsweep_library)))
+                                              _build.halfsweep_library,
+                                              halfsweep_bodies.scalar_library)))
     log("phase 1: built the fused-sweep, the bond, the resident (and its grid-stride body) and "
-        f"the half-sweep kernels in {time.perf_counter() - t0:.2f} s")
+        f"the half-sweep (and its first body) kernels in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
     cgen = torch.Generator(device=dev).manual_seed(0)
@@ -1633,6 +1737,7 @@ def main() -> int:
     S = RESIDENT_SWEEPS
     fused = "tsu_tpu_torch/csrc/checkerboard_fused.cu"
     shard_site = SHARD[0] * SHARD[1] // 2
+    k3_shard_site = site // 4                         # a 2 x 2 mesh's shard: 2048 x 1024 compact
     bonds = "tsu_tpu_torch/csrc/checkerboard_bonds.cu"
     resident = "tsu_tpu_torch/csrc/checkerboard_resident.cu"
 
@@ -1657,8 +1762,9 @@ def main() -> int:
 
     # Bytes a unit of work must move: K1 and K2 read black and write red and
     # black (2 B each at bf16) per sweep, K1's shard mode also its four halo
-    # rows; K3 reads the other plane and its two halo rows and writes its
-    # colour (4 B each at f32) per half-sweep; K4 reads the other plane and a code
+    # rows; K3 reads the other plane and its two halo rows (a shard also its
+    # two halo columns) and writes its colour (4 B each at f32) per
+    # half-sweep; K4 reads the other plane and a code
     # byte and writes its colour per half-sweep, K5 the same with the codes
     # shared by the batch; K6 and K7 read and write both planes once per call
     # of S sweeps (per sweep: / S) and K7 reads a 9-entry table per sweep; a
@@ -1679,6 +1785,14 @@ def main() -> int:
               2 * 4 * site + 2 * 4 * MAIN_SHAPE[1] // 2, band_sites=n_band3,
               band_differ=n_differ3, bf16_ms=st["K3 bf16"],
               bf16_bound_ms=bound_ms(2 * 2 * site + 2 * 2 * MAIN_SHAPE[1] // 2),
+              shard_ms=st["K3 shard"],
+              shard_bound_ms=bound_ms(2 * 4 * k3_shard_site
+                                      + 4 * (MAIN_SHAPE[1] // 2 + MAIN_SHAPE[0])),
+              previous_ms=st["K3 first"], previous_bf16_ms=st["K3 bf16 first"],
+              previous_shard_ms=st["K3 shard first"],
+              previous_source="tsu_tpu_torch/csrc/checkerboard_halfsweep_scalar.cu",
+              runs_ms={k[5:]: st[k] for k in st if k.startswith("this ")},
+              previous_runs_ms={k[6:]: st[k] for k in st if k.startswith("first ")},
               host_ms_per_sharded_sweep={"rows 4 (K1)": st["host 4x1"],
                                          "2 x 2 (K3)": st["host 2x2"]}),
         entry("bond_halfsweep", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:71", launches4,

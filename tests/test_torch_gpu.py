@@ -35,7 +35,12 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
     continuous_band,
 )
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
-from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep, halfsweep_band, halfsweep_reference
+from tsu_tpu_torch.ops.checkerboard_kernel import (
+    halfsweep,
+    halfsweep_band,
+    halfsweep_reference,
+    halfsweep_thresholds,
+)
 from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_anneal_tables,
     resident_anneal_tables_reference,
@@ -61,6 +66,7 @@ from tsu_tpu_torch.samplers import (
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
+from tsu_tpu_torch.tools import halfsweep_bodies
 
 pytestmark = pytest.mark.gpu
 
@@ -471,26 +477,48 @@ def test_decomposition_kernels_match_plain_versions(cuda, mode, shape, dtype, pe
     assert decomposition_sweep.launches == before + 1
 
 
-@pytest.mark.parametrize("shape,dtype,periodic,col_halo,row0,col0", [
-    ((64, 64), torch.float32, True, False, 0, 0),
-    ((18, 20), torch.bfloat16, False, False, 0, 0),    # R % 8 != 0, open
-    ((34, 522), torch.float32, True, True, 34, 259),   # wider than a block, col0 % 4 != 0
-    ((16, 14), torch.bfloat16, True, True, 2, 6),
+def _halo_spins(rng, shape, dtype, device):
+    return torch.as_tensor(np.where(rng.random(shape) < 0.5, 1.0, -1.0), dtype=dtype).to(device)
+
+
+def _k3_halos(rng, R, C2, dtype, device, col_halo, halos):
+    """(up, down, column halos) of a K3 plane: random +-1 rows and columns;
+    with ``halos`` "zero" the up row and the left column are zeros (the open
+    top and left edges of a shard); "strided" takes the columns in place from
+    a wider plane, as the sharded path hands them over."""
+    up, down = (_halo_spins(rng, (1, C2), dtype, device) for _ in range(2))
+    if halos == "zero":
+        up = torch.zeros_like(up)
+    if not col_halo:
+        return up, down, {}
+    if halos == "strided":
+        wide = _halo_spins(rng, (R, C2 + 3), dtype, device)
+        return up, down, dict(left_col=wide[:, -1:], right_col=wide[:, 1:2])
+    left, right = (_halo_spins(rng, (R, 1), dtype, device) for _ in range(2))
+    if halos == "zero":
+        left = torch.zeros_like(left)
+    return up, down, dict(left_col=left, right_col=right)
+
+
+@pytest.mark.parametrize("shape,dtype,periodic,col_halo,row0,col0,halos", [
+    ((64, 64), torch.float32, True, False, 0, 0, "random"),
+    ((18, 20), torch.bfloat16, False, False, 0, 0, "random"),    # R % 8 != 0, open
+    ((34, 522), torch.float32, True, True, 34, 259, "random"),   # wider than a block, col0 % 4
+    ((16, 14), torch.bfloat16, True, True, 2, 6, "random"),
+    ((18, 20), torch.float32, False, False, 0, 0, "zero"),       # the open top of a lattice
+    ((34, 522), torch.bfloat16, False, True, 0, 0, "zero"),      # a shard's open corner
+    ((34, 522), torch.float32, True, True, 34, 260, "strided"),  # the columns read in place
+    ((16, 14), torch.bfloat16, True, True, 2, 7, "strided"),
 ])
 @pytest.mark.parametrize("injected", [True, False])
 def test_halfsweep_kernel_matches_plain_version(cuda, shape, dtype, periodic, col_halo, row0,
-                                                col0, injected):
-    """K3, both colours, three temperatures, random halos: equal to its plain
-    version at every site outside CONTINUOUS_BAND."""
+                                                col0, halos, injected):
+    """K3, both colours, three temperatures, random, zero or strided halos:
+    equal to its plain version at every site outside CONTINUOUS_BAND."""
     R, C = shape
     other = _black(20, R, C, dtype, cuda)
     rng = np.random.default_rng(21)
-
-    def spins(*s):
-        return torch.as_tensor(np.where(rng.random(s) < 0.5, 1.0, -1.0), dtype=dtype).to(cuda)
-
-    up, down = spins(1, C // 2), spins(1, C // 2)
-    cols = dict(left_col=spins(R, 1), right_col=spins(R, 1)) if col_halo else {}
+    up, down, cols = _k3_halos(rng, R, C // 2, dtype, cuda, col_halo, halos)
     before = halfsweep.launches
     for k, T in enumerate([0.7, 2.269, 4.0]):
         for color in (0, 1):
@@ -506,6 +534,107 @@ def test_halfsweep_kernel_matches_plain_version(cuda, shape, dtype, periodic, co
             other = got
     torch.cuda.synchronize()
     assert halfsweep.launches == before + 6
+
+
+def _halfsweep_both_bodies(rng, R, C2, dtype, periodic, col_halo, injected, device, offset=0,
+                           halos="random", row0=0, col0=0, sweeps=2, T=2.269, field=0.1):
+    """K3 over ``sweeps`` sweeps, half-sweep by half-sweep from the kernel's
+    last output: equal to the first body (checkerboard_halfsweep_scalar.cu)
+    at every site, band included, and to the plain version outside the
+    band. Returns the sites in the band."""
+    old = halfsweep_bodies.scalar_library()
+    other = _placed(_halo_spins(rng, (R, C2), dtype, "cpu"), device, offset)
+    up, down, cols = _k3_halos(rng, R, C2, dtype, device, col_halo, halos)
+    old_cols = {k: v.contiguous() for k, v in cols.items()}
+    n_band = 0
+    for k in range(sweeps):
+        for color in (0, 1):
+            U = None
+            if injected:
+                U = _placed(torch.as_tensor(rng.integers(0, 1 << 24, (R, C2)),
+                                            dtype=torch.int32), device, offset)
+            kw = dict(update_red=color == 0, temperature=T, J=1.0, field=field,
+                      periodic=periodic, key=(41 + color, k), row0=row0, col0=col0, uniforms=U)
+            got = halfsweep(other, up, down, **kw, **cols)
+            first = halfsweep_bodies.body_halfsweep(old, other, up, down, **kw, **old_cols)
+            assert torch.equal(got, first), ("first body", k, color, int((got != first).sum()))
+            band = halfsweep_band(other, up, down, **kw, **cols)
+            _assert_bond_equal(got, halfsweep_reference(other, up, down, **kw, **cols), band)
+            n_band += int(band.sum())
+            other = got
+    torch.cuda.synchronize()
+    return n_band
+
+
+@pytest.mark.parametrize("C2", [1, 3, 4, 5, 33])
+@pytest.mark.parametrize("R", [2, 6, 10])    # the least R, and two rows either side of an 8-row strip
+def test_halfsweep_kernel_at_narrow_and_ragged_shapes(cuda, R, C2):
+    """The strip body's column edges (a ragged last group, planes narrower
+    than a Philox group or a warp, a column offset inside a group) and row
+    edges (strips taller than the plane), both dtypes, periodic and open,
+    with and without column halos, injected and Philox."""
+    rng = np.random.default_rng(200 * R + C2)
+    before = halfsweep.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        for periodic in (True, False):
+            for col_halo in (False, True):
+                for injected in (True, False):
+                    _halfsweep_both_bodies(rng, R, C2, dtype, periodic, col_halo, injected, cuda,
+                                           halos="zero" if not periodic else "random",
+                                           row0=2 * C2, col0=C2 + injected)
+    assert halfsweep.launches == before + 16 * 4
+
+
+@pytest.mark.parametrize("shape", [(18, 128), (66, 500)])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_halfsweep_kernel_on_planes_not_aligned_for_the_vector_path(cuda, shape, offset):
+    """C2 % 4 == 0 but the planes start at an odd element: the kernel takes
+    its site-by-site path and still equals the first body and the plain
+    version."""
+    rng = np.random.default_rng(offset)
+    for dtype in (torch.bfloat16, torch.float32):
+        for periodic in (True, False):
+            for injected in (True, False):
+                _halfsweep_both_bodies(rng, *shape, dtype, periodic, periodic, injected, cuda,
+                                       offset=offset, halos="strided" if periodic else "zero")
+
+
+@pytest.mark.parametrize("shape,dtype,periodic,col_halo,halos,row0,col0", [
+    ((64, 64), torch.float32, True, False, "random", 0, 0),
+    ((130, 512), torch.bfloat16, True, True, "strided", 130, 256),   # the vector path
+    ((34, 522), torch.float32, False, True, "zero", 0, 259),
+    ((34, 1000), torch.bfloat16, False, False, "zero", 0, 0),
+])
+@pytest.mark.parametrize("injected", [True, False])
+def test_halfsweep_kernel_equals_its_first_body_at_every_site(cuda, shape, dtype, periodic,
+                                                              col_halo, halos, row0, col0,
+                                                              injected):
+    """The strip body writes the first body's bits at every site, the
+    1e-6 band included, over 2 sweeps; the uniforms sit at the thresholds
+    t - 2 .. t + 1 (injected) so that the band is full."""
+    R, C2 = shape
+    rng = np.random.default_rng(R + C2)
+    n_band = _halfsweep_both_bodies(rng, R, C2, dtype, periodic, col_halo, False, cuda,
+                                    halos=halos, row0=row0, col0=col0, T=0.7, field=0.25)
+    if injected:
+        t = halfsweep_thresholds(1.0, 0.25, 0.7)
+        gen = np.random.default_rng(7)
+        other = _placed(_halo_spins(rng, (R, C2), dtype, "cpu"), cuda)
+        up, down, cols = _k3_halos(rng, R, C2, dtype, cuda, col_halo, halos)
+        old_cols = {k: v.contiguous() for k, v in cols.items()}
+        for color in (0, 1):
+            u = t.numpy()[gen.integers(0, 9, (R, C2))] + gen.integers(-2, 2, (R, C2))
+            U = torch.as_tensor(np.clip(u, 0, (1 << 24) - 1), dtype=torch.int32, device=cuda)
+            kw = dict(update_red=color == 0, temperature=0.7, J=1.0, field=0.25,
+                      periodic=periodic, key=(5, color), row0=row0, col0=col0, uniforms=U)
+            got = halfsweep(other, up, down, **kw, **cols)
+            first = halfsweep_bodies.body_halfsweep(halfsweep_bodies.scalar_library(), other,
+                                                    up, down, **kw, **old_cols)
+            assert torch.equal(got, first), int((got != first).sum())
+            n_band += int(halfsweep_band(other, up, down, **kw, **cols).sum())
+            other = got
+    torch.cuda.synchronize()
+    assert n_band > 0 or not injected
 
 
 def test_halfsweep_kernel_rejects_operands_off_the_device(cuda):

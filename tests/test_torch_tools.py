@@ -1,7 +1,8 @@
 """The port's measurement tools on the CPU: the headline bench,
 kernel_bench and kernel_decomposition run at 64^2 when asked for the CPU and
-raise without a card otherwise, as bond_bodies does; importing the tools
-imports no JAX or Triton and builds nothing."""
+raise without a card otherwise, as the body tools (bond_bodies,
+resident_bodies, halfsweep_bodies) do; importing the tools imports no JAX
+or Triton and builds nothing."""
 
 import json
 import subprocess
@@ -17,6 +18,7 @@ from tsu_tpu_torch.tools import (
     bench,
     bodies,
     bond_bodies,
+    halfsweep_bodies,
     kernel_bench,
     kernel_decomposition,
     resident_bodies,
@@ -65,6 +67,7 @@ def test_kernel_bench_check_gives_moments():
     lambda: kernel_decomposition.main(["--size", "64", "--sweeps", "2"]),
     lambda: bond_bodies.main(["--rounds", "1"]),
     lambda: resident_bodies.main(["--rounds", "1", "--sweeps", "2"]),
+    lambda: halfsweep_bodies.main(["--rounds", "1"]),
 ])
 def test_tools_without_a_card_raise(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,10 +92,12 @@ def test_importing_the_tools_pulls_in_no_jax_or_triton_and_builds_nothing():
         "import tsu_tpu_torch.tools.kernel_decomposition, tsu_tpu_torch.tools.profile_paths\n"
         "import tsu_tpu_torch.tools.timing, tsu_tpu_torch.tools.bond_bodies\n"
         "import tsu_tpu_torch.tools.resident_bodies, tsu_tpu_torch.tools.bodies\n"
+        "import tsu_tpu_torch.tools.halfsweep_bodies as hb\n"
         "from tsu_tpu_torch.ops import _build\n"
         "from tsu_tpu_torch.ops import checkerboard_resident as cr\n"
         "libs = (_build.fused_sweep_library, _build.bond_sweep_library,\n"
-        "        _build.resident_sweep_library, cr.resident_grid, cr._card_limits)\n"
+        "        _build.resident_sweep_library, cr.resident_grid, cr._card_limits,\n"
+        "        _build.halfsweep_library, hb.scalar_library)\n"
         "print(json.dumps({'jax': 'jax' in sys.modules, 'triton': 'triton' in sys.modules,\n"
         "                  'tsu_tpu': 'tsu_tpu' in sys.modules,\n"
         "                  'built': sum(f.cache_info().currsize for f in libs)}))\n"
@@ -196,3 +201,53 @@ def test_sass_count_gives_the_resident_kernel_int32_per_site():
     (loop,) = sass_count.report(sass_count.parse(text))[
         "_Z15resident_kernelI13__nv_bfloat16Lb0ELb1EEvPT_"]["loops"]
     assert loop["longest_path_int32"] == 3 and loop["int32_per_site"] == 3 / 8
+
+
+@pytest.mark.parametrize("after", [False, True])
+def test_sass_count_gives_the_halfsweep_strip_per_site_and_its_mufu(after):
+    """K3 computes its threshold table (MUFU, CALL) before a barrier and
+    then walks an unrolled strip of TR = 8 rows: the report gives its int32
+    per site like the bond kernels' and counts the MUFU and CALL
+    instructions reachable from the barrier, none unless one follows it."""
+    from tsu_tpu_torch.tools import sass_count
+
+    name = "_ZN12_GLOBAL__N_116halfsweep_kernelIfLb1ELb0ELb1ELi8EEEvPKT_"
+    tail = ("        /*0060*/                   MUFU.EX2 R5, R5 ;\n" if after else "")
+    text = ("        Function : " + name + "\n"
+            "        /*0000*/                   MUFU.EX2 R2, R2 ;\n"
+            "        /*0010*/                   CALL.REL.NOINC 0x80 ;\n"
+            "        /*0020*/                   BAR.RED.OR.DEFER_BLOCKING 0x0, P0 ;\n"
+            "        /*0030*/                   IADD3 R2, R2, 0x1, RZ ;\n"
+            "        /*0040*/                   LOP3.LUT R3, R2, 0x3, RZ, 0xc0, !PT ;\n"
+            "        /*0050*/                   STG.E [R4.64], R3 ;\n"
+            + tail +
+            "        /*0070*/                   EXIT ;\n"
+            "        /*0080*/                   MUFU.RCP R6, R6 ;\n"
+            "        /*0090*/                   RET.REL.NODEC R20 0x0 ;\n")
+    got = sass_count.report(sass_count.parse(text))[name]
+    assert got["loops"] == [] and got["rows"] == 8
+    assert got["int32_per_site"] == got["longest_path_int32"] / 32
+    assert got["mufu_or_call_after_barrier"] == (1 if after else 0)
+
+
+def test_sass_count_takes_a_shuffles_divergent_fallback_for_no_loop():
+    """A shuffle the compiler cannot prove converged gets an out-of-line
+    fallback (BRA.DIV to WARPSYNC.COLLECTIVE, SHFL, ENDCOLLECTIVE and a
+    branch back): that backward branch is a return, not a loop."""
+    from tsu_tpu_torch.tools import sass_count
+
+    name = "_ZN12_GLOBAL__N_116halfsweep_kernelIfLb1ELb0ELb1ELi8EEEvPKT_"
+    text = ("        Function : " + name + "\n"
+            "        /*0000*/                   IADD3 R2, R2, 0x1, RZ ;\n"
+            "        /*0010*/                   BRA.DIV UR4, 0x60 ;\n"
+            "        /*0020*/                   SHFL.IDX PT, R3, R2, R5, 0x1f ;\n"
+            "        /*0030*/                   LOP3.LUT R3, R3, 0x3, RZ, 0xc0, !PT ;\n"
+            "        /*0040*/                   STG.E [R4.64], R3 ;\n"
+            "        /*0050*/                   EXIT ;\n"
+            "        /*0060*/                   WARPSYNC.COLLECTIVE R6, 0x90 ;\n"
+            "        /*0070*/                   SHFL.IDX P0, R3, R2, R5, 0x1f ;\n"
+            "        /*0080*/                   ENDCOLLECTIVE ;\n"
+            "        /*0090*/                   BRA 0x30 ;\n")
+    got = sass_count.report(sass_count.parse(text))[name]
+    assert got["loops"] == [] and got["rows"] == 8
+    assert got["longest_path"] == 6 and got["longest_path_int32"] == 2

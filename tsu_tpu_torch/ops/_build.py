@@ -113,11 +113,25 @@ def resident_library(path) -> ctypes.CDLL:
 def halfsweep_library() -> ctypes.CDLL:
     """The exact-sigmoid half-sweep kernel library (one lattice or one
     shard, with optional column halos), built and loaded once per process."""
-    lib = ctypes.CDLL(str(library_path("checkerboard_halfsweep",
-                                       ("checkerboard_halfsweep.cu",))))
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.tsu_halfsweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, f, i, i, u, u, i, p]
-    lib.tsu_halfsweep.restype = i
+    return halfsweep_body_library(library_path("checkerboard_halfsweep",
+                                               ("checkerboard_halfsweep.cu",)))
+
+
+def halfsweep_body_library(path) -> ctypes.CDLL:
+    """Load a build of a version of the half-sweep kernel and declare its C
+    entry: the strip body's ``tsu_halfsweep``, whose column halos carry row
+    strides, or the first body's ``tsu_halfsweep_scalar``
+    (``checkerboard_halfsweep_scalar.cu``), whose columns are contiguous."""
+    lib = ctypes.CDLL(str(path))
+    p, i, u, f, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
+    if hasattr(lib, "tsu_halfsweep_scalar"):
+        lib.tsu_halfsweep_scalar.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, f, i, i, u, u,
+                                             i, p]
+        lib.tsu_halfsweep_scalar.restype = i
+    else:
+        lib.tsu_halfsweep.argtypes = [p, p, p, p, p, p, s, s, p, i, i, i, i, f, f, f, i, i, u, u,
+                                      i, p]
+        lib.tsu_halfsweep.restype = i
     return lib
 
 

@@ -3,7 +3,10 @@
 Counterpart of ``tsu_tpu/ops/checkerboard_pallas.py``. ``halfsweep`` wraps
 the kernel of ``tsu_tpu_torch/csrc/checkerboard_halfsweep.cu``: on a CUDA
 tensor it launches the kernel, on a CPU tensor it runs
-``halfsweep_reference``, the plain PyTorch version.
+``halfsweep_reference``, the plain PyTorch version. The kernel computes the
+nine values p can take in a launch once per block and compares each site's
+uniform with a 24-bit threshold (:func:`halfsweep_thresholds`), which gives
+the same result as comparing it with p.
 
 A half-sweep resamples one colour of the compact planes from the other
 colour's (R, C/2) plane and its halos: the rows above its first and below
@@ -41,7 +44,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _U24_SCALE = 1.0 / 16777216.0
 
 __all__ = ["CONTINUOUS_BAND", "checkerboard_sweeps_planes_kernel", "halfsweep",
-           "halfsweep_band", "halfsweep_reference"]
+           "halfsweep_band", "halfsweep_reference", "halfsweep_thresholds"]
 
 
 def _check(other, up_row, down_row, left_col, right_col, uniforms, row0: int, col0: int):
@@ -68,6 +71,45 @@ def _check(other, up_row, down_row, left_col, right_col, uniforms, row0: int, co
     if uniforms is not None and (uniforms.shape != (R, C2) or uniforms.dtype != torch.int32):
         raise ValueError(f"uniforms must be {(R, C2)} int32, got "
                          f"{tuple(uniforms.shape)} {uniforms.dtype}")
+
+
+def _column_stride(name: str, col, R: int) -> int:
+    """The elements between the R values of a column halo, which lie along
+    one dimension: a contiguous (R,) or (R, 1) tensor, or an (R, 1) column of
+    the neighbour shard's plane read in place."""
+    dims = [d for d, n in enumerate(col.shape) if n != 1]
+    if len(dims) != 1 or col.shape[dims[0]] != R:
+        raise ValueError(f"{name} must be a column of {R} values, got {tuple(col.shape)}")
+    return col.stride(dims[0])
+
+
+def _kernel_operands(other, up_row, down_row, left_col, right_col, uniforms) -> tuple:
+    """Raise unless every operand lies on ``other``'s device, contiguous but
+    for the column halos, which may be strided columns; returns the column
+    halos' strides (0 without them)."""
+    _check_on(other.device, other=other, up_row=up_row, down_row=down_row, uniforms=uniforms)
+    strides = []
+    for name, col in (("left_col", left_col), ("right_col", right_col)):
+        if col is None:
+            strides.append(0)
+            continue
+        if col.device != other.device:
+            raise ValueError(f"{name} must lie on {other.device}")
+        strides.append(_column_stride(name, col, other.shape[0]))
+    return tuple(strides)
+
+
+def halfsweep_thresholds(J: float, field: float, temperature) -> torch.Tensor:
+    """The kernel's threshold table, (9,) int64: entry nbr + 4, nbr = -4..4,
+    is t = ceil(p * 2^24) of the float32 p = 1 / (1 + exp(-2 (J nbr + field)
+    / T)), in 0..2^24 (0 where p is 0 or not a number). u24 * 2^-24 and
+    p * 2^24 are exact in float32, so u24 < t exactly when u24 * 2^-24 < p."""
+    n = torch.arange(-4, 5, dtype=torch.float32)
+    T = torch.full((), float(temperature), dtype=torch.float32)
+    local = n * float(J) + float(field)
+    p = 1.0 / (1.0 + torch.exp(-(2.0 * local) / T))
+    t = torch.ceil(p * 16777216.0).to(torch.int64)
+    return torch.where(p > 0, t, 0)
 
 
 def _probability(other, up_row, down_row, left_col, right_col, update_red, periodic,
@@ -125,8 +167,10 @@ def halfsweep(other, up_row, down_row, *, update_red: bool, temperature, J: floa
     draws are keyed by. ``uniforms``: optional (R, C2) int32 replacing the
     generator. A CUDA tensor launches the kernel, and
     ``halfsweep.launches`` grows by one; a CPU tensor runs
-    :func:`halfsweep_reference`. Every operand lies contiguous on
-    ``other``'s device.
+    :func:`halfsweep_reference`. Every operand lies on ``other``'s device,
+    contiguous but for the column halos, which may be strided columns: an
+    (R, 1) view of the neighbour shard's plane is read in place. The kernel
+    takes ``other`` to hold +-1 and the halos +-1 or 0.
     """
     if other.device.type == "cpu":
         return halfsweep_reference(other, up_row, down_row, update_red=update_red,
@@ -136,16 +180,16 @@ def halfsweep(other, up_row, down_row, *, update_red: bool, temperature, J: floa
     if other.device.type != "cuda":
         raise ValueError(f"halfsweep runs on cpu or cuda tensors, got {other.device}")
     _check(other, up_row, down_row, left_col, right_col, uniforms, row0, col0)
-    _check_on(other.device, other=other, up_row=up_row, down_row=down_row,
-              left_col=left_col, right_col=right_col, uniforms=uniforms)
+    left_stride, right_stride = _kernel_operands(other, up_row, down_row, left_col, right_col,
+                                                 uniforms)
     R, C2 = other.shape
     out = torch.empty_like(other)
     with torch.cuda.device(other.device):
         err = halfsweep_library().tsu_halfsweep(
             other.data_ptr(), out.data_ptr(), up_row.data_ptr(), down_row.data_ptr(),
-            _ptr(left_col), _ptr(right_col), _ptr(uniforms), R, C2, int(update_red),
-            int(periodic), float(J), float(field), float(temperature), row0, col0,
-            key[0] & MASK32, key[1] & MASK32, int(other.dtype == torch.bfloat16),
+            _ptr(left_col), _ptr(right_col), left_stride, right_stride, _ptr(uniforms), R, C2,
+            int(update_red), int(periodic), float(J), float(field), float(temperature), row0,
+            col0, key[0] & MASK32, key[1] & MASK32, int(other.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"half-sweep kernel launch failed with CUDA error {err}")

@@ -6,7 +6,8 @@ mesh's ``row`` axis, and optionally its ``col`` axis (compact columns); shard
 (i, j) lives on mesh device (i, j) for the whole run (the other mesh axes are
 the reference's replicated copies and take their index 0). Before each
 kernel launch a shard gets its halo: the neighbour shards' edge rows (and
-columns), sliced and copied to its device, zeroed at an open global edge.
+columns), sliced, copied only to another device (on the shard's own device
+they are views, read in place), zeroed at an open global edge.
 Only the per-sample scalars and the final planes come back.
 
 Kernels, by the shards' tensors' device (a CPU mesh runs their plain
@@ -96,13 +97,17 @@ def _halo_exchange_cols(planes, periodic: bool):
     (lefts, rights), each (R_local, 1) per shard, the compact columns next
     to the shard's first and last one. Compact-column adjacency does not
     depend on the column offset, so the wrap realises a periodic edge as a
-    roll does on one plane; an open edge gets zeros."""
+    roll does on one plane; an open edge gets zeros. On the shard's own
+    device a column halo is a strided view of the neighbour shard's plane,
+    no copy: K3 reads it in place, and no launch of a half-step writes what
+    another reads (each writes a new plane). Across devices ``.to`` copies
+    it."""
     m = len(planes[0])
     lefts, rights = [], []
     for row in planes:
-        lefts.append([row[(j - 1) % m][:, -1:].contiguous().to(p.device) if periodic or j > 0
+        lefts.append([row[(j - 1) % m][:, -1:].to(p.device) if periodic or j > 0
                       else torch.zeros_like(p[:, :1]) for j, p in enumerate(row)])
-        rights.append([row[(j + 1) % m][:, :1].contiguous().to(p.device)
+        rights.append([row[(j + 1) % m][:, :1].to(p.device)
                        if periodic or j < m - 1 else torch.zeros_like(p[:, :1])
                        for j, p in enumerate(row)])
     return lefts, rights

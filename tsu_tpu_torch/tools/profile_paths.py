@@ -3,7 +3,7 @@ torch.profiler.
 
 Run from the repository root on a machine with a card:
 
-    python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR]
+    python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR] [--only NAME ...]
 
 Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13, 17
 and 22), once to warm up and once under the profiler. For each path it prints
@@ -16,8 +16,9 @@ the host path of one launch on the host clock, at a 2x2 lattice whose kernel
 the card finishes at once: a batched sweep (``fused_sweeps_keyed``), one
 ``fused_sweep`` wrapper call, and one sweep of ``fused_sweeps``, which sets up
 its launches once per call. ``--out DIR`` writes the profiler's tables to
-DIR/profile_paths.txt. The last line is one JSON object with every number
-printed.
+DIR/profile_paths.txt; ``--only`` profiles the paths named (for instance
+``"sharded sample 2 x 2"``) and nothing else. The last line is one JSON
+object with every number printed.
 """
 
 from __future__ import annotations
@@ -175,6 +176,7 @@ def host_launch_us(dev, n: int = 2000) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler's full tables")
+    ap.add_argument("--only", nargs="*", help="the paths to profile (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
@@ -184,6 +186,8 @@ def main(argv=None) -> int:
 
     result, tables = {"card": card_name, "paths": {}}, []
     for name, fn in paths(dev).items():
+        if args.only and name not in args.only:
+            continue
         r = result["paths"][name] = profile_path(fn, tables)
         kern = ", ".join(f"{k} {v['count']} x {v['ms'] / v['count'] * 1e3:.1f} us"
                          for k, v in r["kernels"].items())

@@ -3,8 +3,10 @@
 Run from the repository root on a machine with the CUDA toolkit:
 
     python3 -m tsu_tpu_torch.tools.sass_count [--sass FILE ...] [--out DIR] [--ptxas]
+        [--lib NAME ...]
 
-With no ``--sass`` it builds the four kernel libraries (``ops/_build.py``)
+With no ``--sass`` it builds the four kernel libraries, or those ``--lib``
+names (``ops/_build.py``),
 and disassembles them with ``cuobjdump -sass``; ``--sass`` reads such dumps
 instead. For every kernel function it prints its instruction count and, for
 each innermost loop (a backward branch and the code it jumps over), the
@@ -21,7 +23,13 @@ row of a thread's four sites at a time: for them the longest path is also
 given per row and its int32 part per site, from the innermost loop (weight
 planes) or, where the template argument TR of the mangled name fixes the
 strip at TR rows and the row loop is unrolled (codes), from the whole
-kernel over TR rows, its set-up included. For the resident kernel (K6, K7)
+kernel over TR rows, its set-up included. The half-sweep kernel (K3) walks
+the same strips and is reported the same way; its per-site path should hold
+no MUFU (exp, reciprocal) and no CALL (the slow path of a division): each
+loop reports the MUFU and CALL instructions in it, and a kernel with a
+barrier (K3 computes its threshold table before one) the MUFU and CALL
+instructions reachable from the barrier by branches and fall-through, its
+strip. For the resident kernel (K6, K7)
 each loop's int32 part is also given per site: its hot loop is one lane's
 eight sites (two Philox groups) in one half-step, so that figure is the
 int32 instructions per site per sweep.
@@ -54,10 +62,10 @@ _INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", 
             "POPC", "ICMP", "ISCADD", "IDP", "IMUL")
 LIBRARIES = ("checkerboard_fused", "checkerboard_bonds", "checkerboard_resident",
              "checkerboard_halfsweep")
-# K4 and K5 (by a part of their names) walk a strip of rows, a row of a
+# K4, K5 and K3 (by a part of their names) walk a strip of rows, a row of a
 # thread's four sites at a time; an iteration of K6/K7's item loop updates a
 # lane's eight sites (a byte of a word, two Philox groups) once in a sweep.
-STRIP_KERNEL, SITES_PER_ROW = "bond_halfsweep", 4
+STRIP_KERNELS, SITES_PER_ROW = ("bond_halfsweep", "halfsweep_kernel"), 4
 RESIDENT_KERNEL, RESIDENT_SITES = "resident_kernel", 8
 _FIXED_ROWS = re.compile(r"Li(\d+)EEEv")     # the last template argument, int TR
 
@@ -67,6 +75,36 @@ def fixed_rows(name: str) -> int:
     loop unrolled), or 0."""
     m = _FIXED_ROWS.search(name)
     return int(m.group(1)) if m else 0
+
+
+def is_strip(name: str) -> bool:
+    """True for a kernel that walks a strip of rows, four sites a row."""
+    return any(k in name for k in STRIP_KERNELS)
+
+
+def is_special(op: str) -> bool:
+    """True for a MUFU (exp, reciprocal, ...) or a CALL instruction."""
+    return op.startswith(("MUFU", "CALL"))
+
+
+def reachable(ins: list, start: int) -> list:
+    """The instructions reachable from address ``start`` by branches
+    (either way) and fall-through; a CALL is not followed."""
+    index = {x[0]: i for i, x in enumerate(ins)}
+    seen, todo = set(), [index[start]]
+    while todo:
+        i = todo.pop()
+        if i in seen or i >= len(ins):
+            continue
+        seen.add(i)
+        a, pred, op, args = ins[i]
+        t = _target(op, args)
+        if t is not None and t in index:
+            todo.append(index[t])
+        if pred or args.startswith(("P", "!P")) or op.startswith("BRA.DIV") or not (
+                op.startswith("BRA") or op in ("EXIT", "RET")):
+            todo.append(i + 1)
+    return [ins[i] for i in sorted(seen)]
 
 
 def is_int32(op: str) -> bool:
@@ -123,11 +161,26 @@ def longest_path(ins: list, lo: int, hi: int) -> tuple:
     return best[0] if body else (0, 0)
 
 
+def _collective_return(ins: list, i: int) -> bool:
+    """True where the branch ins[i] ends the out-of-line fallback of a
+    shuffle that found its warp diverged (BRA.DIV jumps there; it runs
+    WARPSYNC.COLLECTIVE, the shuffle and ENDCOLLECTIVE, and branches back):
+    a return, not a loop."""
+    for a, pred, op, args in reversed(ins[:i]):
+        if op.startswith("ENDCOLLECTIVE"):
+            return True
+        if op.startswith(("BRA", "EXIT", "RET")):
+            return False
+    return False
+
+
 def loops(ins: list) -> list:
     """Innermost loops as (head, branch address): backward branches whose
-    range holds no other backward branch."""
-    back = [(t, a) for a, pred, op, args in ins
-            if (t := _target(op, args)) is not None and (t < a or t == a and pred)]
+    range holds no other backward branch (the returns of a shuffle's
+    divergent fallback are no loops)."""
+    back = [(t, a) for i, (a, pred, op, args) in enumerate(ins)
+            if (t := _target(op, args)) is not None and (t < a or t == a and pred)
+            and not _collective_return(ins, i)]
     return [(h, b) for h, b in back
             if not any(h <= h2 and b2 <= b and (h2, b2) != (h, b) for h2, b2 in back)]
 
@@ -138,13 +191,16 @@ def report(funcs: dict) -> dict:
         if not ins:
             continue
         entry = {"instructions": len(ins),
-                 "int32": sum(is_int32(x[2]) for x in ins), "loops": []}
+                 "int32": sum(is_int32(x[2]) for x in ins), "loops": [],
+                 "mufu_or_call_in_loops": []}
         for head, branch in loops(ins):
+            entry["mufu_or_call_in_loops"].append(
+                sum(head <= x[0] <= branch and is_special(x[2]) for x in ins))
             n, n_int = longest_path(ins, head, branch)
             loop = {"range": [hex(head), hex(branch)],
                     "instructions": sum(head <= x[0] <= branch for x in ins),
                     "longest_path": n, "longest_path_int32": n_int}
-            if STRIP_KERNEL in name:
+            if is_strip(name):
                 loop["int32_per_site"] = n_int / SITES_PER_ROW
             elif RESIDENT_KERNEL in name:
                 loop["int32_per_site"] = n_int / RESIDENT_SITES
@@ -152,20 +208,24 @@ def report(funcs: dict) -> dict:
         if not entry["loops"]:
             entry["longest_path"], entry["longest_path_int32"] = longest_path(
                 ins, ins[0][0], ins[-1][0])
-            if STRIP_KERNEL in name and (rows := fixed_rows(name)):
+            if is_strip(name) and (rows := fixed_rows(name)):
                 entry["rows"] = rows
                 entry["int32_per_site"] = entry["longest_path_int32"] / (rows * SITES_PER_ROW)
+        barrier = next((x[0] for x in ins if x[2].startswith("BAR")), None)
+        if barrier is not None:
+            entry["mufu_or_call_after_barrier"] = sum(
+                is_special(x[2]) for x in reachable(ins, barrier))
         out[name] = entry
     return out
 
 
-def dump_libraries(out_dir=None) -> dict:
+def dump_libraries(out_dir=None, libraries=LIBRARIES) -> dict:
     """Build the kernel libraries and disassemble them: {library: text}."""
     from tsu_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     dumps = {}
-    for lib in LIBRARIES:
+    for lib in libraries:
         path = _build.library_path(lib, (f"{lib}.cu",))
         dumps[lib] = subprocess.run([tool, "-sass", str(path)], check=True, capture_output=True,
                                     text=True).stdout
@@ -196,12 +256,12 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-def ptxas_libraries() -> dict:
+def ptxas_libraries(libraries=LIBRARIES) -> dict:
     """Compile every kernel source with -Xptxas -v: {library: report}."""
     from tsu_tpu_torch.ops import _build
 
     out = {}
-    for lib in LIBRARIES:
+    for lib in libraries:
         with tempfile.TemporaryDirectory() as tmp:
             proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                                    str(Path(tmp, "lib.so")), str(_build._CSRC / f"{lib}.cu")],
@@ -216,9 +276,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="directory for the listings")
     ap.add_argument("--ptxas", action="store_true",
                     help="also print registers and spills from nvcc -Xptxas -v")
+    ap.add_argument("--lib", nargs="*", choices=LIBRARIES, default=list(LIBRARIES),
+                    help="the libraries to build (default: all)")
     args = ap.parse_args(argv)
     dumps = ({Path(p).stem: Path(p).read_text() for p in args.sass} if args.sass
-             else dump_libraries(args.out))
+             else dump_libraries(args.out, args.lib))
     for lib, text in dumps.items():
         for name, r in report(parse(text)).items():
             print(f"{lib} {name}: {r['instructions']} instructions ({r['int32']} int32)")
@@ -227,15 +289,19 @@ def main(argv=None) -> int:
                         f"per row, {r['int32_per_site']:.2f} int32 per site" if "rows" in r else "")
                 print(f"    no loop; longest path {r['longest_path']} "
                       f"({r['longest_path_int32']} int32){rows}")
-            for lp in r["loops"]:
-                per_row = (f"{' per row,' if STRIP_KERNEL in name else ','} "
+            if "mufu_or_call_after_barrier" in r:
+                print(f"    {r['mufu_or_call_after_barrier']} MUFU or CALL reachable after the "
+                      "barrier")
+            for lp, special in zip(r["loops"], r["mufu_or_call_in_loops"]):
+                per_row = (f"{' per row,' if is_strip(name) else ','} "
                            f"{lp['int32_per_site']:.2f} int32 per site"
                            if "int32_per_site" in lp else "")
                 print(f"    loop {lp['range'][0]}-{lp['range'][1]}: {lp['instructions']} "
                       f"instructions, longest path {lp['longest_path']} "
-                      f"({lp['longest_path_int32']} int32){per_row}")
+                      f"({lp['longest_path_int32']} int32){per_row}; "
+                      f"{special} MUFU or CALL")
     if args.ptxas:
-        for lib, kernels in ptxas_libraries().items():
+        for lib, kernels in ptxas_libraries(args.lib).items():
             for name, r in kernels.items():
                 print(f"ptxas {lib} {name}: {r.get('registers')} registers, {r.get('stack', 0)} B "
                       f"stack, {r.get('spill_stores', 0)} B spill stores, "
