@@ -119,7 +119,33 @@ Phases, each of which raises on failure:
     first body (first, this, this, first), beside its plain version; K1's
     shard mode ms per sweep of a 1024x4096 bf16 shard from a CUDA graph; the
     host time of one sharded sweep at 4096^2 on one card, halo exchange
-    included, on each mesh.
+    included, on each mesh;
+24. dense statistics on the card, each through the device route (checked
+    with last_route): a 10-spin random-J Boltzmann machine through
+    GibbsSampler (checkerboard, and sequential with an initial state), a
+    12-spin periodic IsingChain, a 3x5 periodic IsingGrid (the dense
+    fall-back) and parallel_tempering_dense on 10 spins, against exact
+    enumeration;
+25. the colour sweep replayed from its CUDA graph against the eager colour
+    loop on the same uniforms: a 4,096-spin SK instance (J_ij = ±1/sqrt(n),
+    4,096 colours), 8 chains, 2 sweeps, equal at every site outside the
+    1e-6 band around the threshold (the band's sites counted);
+26. the dense paths at full width: ms per 4,096-spin sweep eager and
+    graphed (CUDA events) and the host's launch calls per sweep of each; the
+    wall of IsingModel(4096).sample(64) with 8 chains, of a 63x65 periodic
+    IsingGrid.sample(64) (4,095 spins, the dense fall-back) and of
+    optimize(MaxCutProblem(W)) on G(2000, 0.5), its cut beside the native
+    greedy bound (3 restarts);
+27. maxcut_sparse at the optimization suite's size (100,000 nodes, 500,000
+    edges drawn as the suite draws them, 2,000 steps, 8 chains, after one
+    warm-up call): the ELL build's seconds, the anneal's wall, the host's
+    launch calls per step and the cut, which must reach the native greedy
+    bound (3 restarts);
+28. resume on the card, each run killed after its first snapshot and
+    resumed, equal to the uninterrupted run bit for bit: sparse_anneal
+    (10,000 nodes, 4 chunks), anneal_spin_glass (256^2 ±J, 3 restarts),
+    pt_ground_state_search (64^2 ±J, 40 iterations, a snapshot every 10)
+    and sharded_lattice_sample on 2 x 2 shards of one card.
 
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
@@ -143,7 +169,19 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tsu_tpu_torch import IsingConfig, IsingGrid, demonstrate_phase_transition
+from tsu_tpu_torch import (
+    GibbsConfig,
+    GibbsSampler,
+    IsingChain,
+    IsingConfig,
+    IsingGrid,
+    IsingModel,
+    MaxCutProblem,
+    demonstrate_phase_transition,
+    optimize,
+)
+from tsu_tpu_torch import native
+from tsu_tpu_torch.ops import sparse_ising
 from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble
 from tsu_tpu_torch.ops import _build
 from tsu_tpu_torch.ops.checkerboard import (
@@ -203,12 +241,16 @@ from tsu_tpu_torch.parallel import (
 )
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.samplers import (
+    anneal_spin_glass,
     build_tempering_ladder,
+    parallel_tempering_dense,
     make_schedule,
     parallel_tempering_bonds,
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
+from tsu_tpu_torch.samplers import annealing, tempering_ladder
+from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper, colour_sweep
 from tsu_tpu_torch.tools import (
     bench,
     halfsweep_bodies,
@@ -216,7 +258,8 @@ from tsu_tpu_torch.tools import (
     kernel_decomposition,
     resident_bodies,
 )
-from tsu_tpu_torch.tools.timing import card, graph_ms, host_ms
+from tsu_tpu_torch.tools.profile_paths import DENSE, SPARSE, sk_couplings, suite_graph
+from tsu_tpu_torch.tools.timing import card, graph_ms, host_launches, host_ms
 from tsu_tpu_torch.tools.timing import event_ms as time_sweeps
 
 MAIN_SHAPE = (4096, 4096)
@@ -1628,6 +1671,293 @@ def phase_sharded_timing(dev, name):
     return t
 
 
+# -- slice 4: dense and sparse discrete sampling, MAX-CUT, resume -----------
+
+BAND = 1e-6          # |u - p| below this may round either way
+
+
+def exact_dense(J, h, T: float, values=(-1.0, 1.0)):
+    """Mean state, <E> and <m^2> (m the mean of a state) of E(x) = -1/2
+    x^T J x - h^T x over x in ``values``^n by enumerating every state
+    (n <= 16)."""
+    n = len(h)
+    bits = (np.arange(2**n)[:, None] >> np.arange(n)) & 1
+    x = np.where(bits == 1, values[1], values[0]).astype(np.float64)
+    J, h = np.asarray(J, np.float64), np.asarray(h, np.float64)
+    E = -0.5 * np.einsum("ki,ij,kj->k", x, J, x) - x @ h
+    w = np.exp(-(E - E.min()) / T)
+    w /= w.sum()
+    return w @ x, float(w @ E), float(w @ x.mean(axis=1) ** 2)
+
+
+def random_couplings(seed: int, n: int, scale: float = 0.7):
+    rng = np.random.default_rng(seed)
+    J = rng.normal(0, scale, (n, n))
+    J = ((J + J.T) / 2).astype(np.float32)
+    np.fill_diagonal(J, 0.0)
+    return J, rng.normal(0, 0.5, n).astype(np.float32)
+
+
+def check_dense(what, x, J, h, T, tol, values=(-1.0, 1.0)):
+    """Against enumeration: <E> within 4 batch-means SEs, and either the
+    marginal means within ``tol`` (the JAX tests' tolerance for random
+    couplings) or, for a model symmetric under a global flip (``tol`` None),
+    <m^2> within 4 SEs: its marginals are zero and converge only as fast as
+    the chains flip their ordered domains."""
+    mean, e_x, m2_x = exact_dense(J, h, T, values)
+    dev_mean = float(np.abs(x.mean(axis=0) - mean).max())
+    E = -0.5 * np.einsum("ki,ij,kj->k", x, J.astype(np.float64), x) - x @ h.astype(np.float64)
+    e, se = batch_means(E.astype(np.float64), 40)
+    m2, se_m2 = batch_means(x.mean(axis=1) ** 2, 40)
+    log(f"{what}: max |mean - exact| {dev_mean:.4f}"
+        + (f" (< {tol})" if tol is not None else "")
+        + f"; <E> {e:.4f} +- {se:.4f} (exact {e_x:.4f}); <m^2> {m2:.4f} +- {se_m2:.4f} "
+        f"(exact {m2_x:.4f})")
+    bad = dev_mean >= tol if tol is not None else abs(m2 - m2_x) > 4 * se_m2
+    if bad or abs(e - e_x) > 4 * se:
+        raise AssertionError(f"{what}: moments differ from exact enumeration")
+
+
+def phase_dense_statistics(dev):
+    J, h = random_couplings(7, 10)
+    for order, init in (("checkerboard", None), ("sequential", np.zeros(10))):
+        s = GibbsSampler(GibbsConfig(n_burnin=100, n_sweeps=3, n_chains=8, update_order=order),
+                         seed=3, device=dev)
+        x = s.sample_boltzmann(J, bias=h, n_samples=8000, initial_state=init)
+        if s.last_route != "device":
+            raise AssertionError(f"GibbsSampler {order} took route {s.last_route}")
+        check_dense(f"10-bit machine, {order}", x.astype(np.float64), J, h, 1.0, 0.06,
+                    (0.0, 1.0))
+    chain = IsingChain(12, J=1.0, seed=2, device=dev,
+                       config=IsingConfig(n_burnin=100, n_sweeps=2, n_chains=8))
+    chain.set_coupling(11, 0, 1.0)
+    check_dense("12-spin periodic chain, T = 1.5", chain.sample(8000, temperature=1.5)
+                .astype(np.float64), chain.J, chain.h, 1.5, None)
+    grid = IsingGrid((3, 5), periodic=True, seed=3, device=dev,
+                     config=IsingConfig(n_burnin=100, n_sweeps=2, n_chains=8))
+    if grid._fast:
+        raise AssertionError("a 3x5 grid did not fall back to the dense engine")
+    check_dense("3x5 periodic grid (dense), T = 2.0", grid.sample(8000, temperature=2.0)
+                .astype(np.float64), grid.J, grid.h, 2.0, None)
+    cold, info = parallel_tempering_dense(0, J, h, temperatures=[1.0, 1.5, 2.3, 3.4],
+                                          n_samples=6000, swap_interval=2, n_burnin=100,
+                                          device=dev)
+    check_dense(f"parallel_tempering_dense cold rung (swap acceptance "
+                f"{info['swap_acceptance_rate']:.3f})", cold.cpu().numpy().astype(np.float64),
+                J, h, 1.0, 0.07, (0.0, 1.0))
+
+
+def eager_sweep_band(plan, states, u, T):
+    """The eager colour loop, also returning which sites' uniforms lay
+    within BAND of their probability."""
+    band = torch.zeros_like(states, dtype=torch.bool)
+    for a, b in plan.bounds:
+        field = torch.addmm(plan.h[a:b], states, plan.J[a:b].t())
+        field.addcmul_(plan.diag[a:b], states[:, a:b], value=-1.0)
+        p = torch.sigmoid(field.div_(T))
+        band[:, a:b] = (u[:, a:b] - p).abs() < BAND
+        torch.lt(u[:, a:b], p, out=states[:, a:b])
+    return band
+
+
+def dense_sk(dev):
+    n, chains, _ = DENSE
+    plan = ColourPlan(sk_couplings(n), np.zeros(n), device=dev)
+    if plan.n_colors != n:
+        raise AssertionError(f"the SK instance has {plan.n_colors} colours, not {n}")
+    sweeper = DenseSweeper(plan, chains, 0)
+    sweeper.load((torch.rand((chains, n), generator=torch.Generator().manual_seed(1)) < 0.5)
+                 .float())
+    sweeper.set_temperature(1.0)
+    return plan, sweeper
+
+
+def phase_dense_graph(dev):
+    plan, sweeper = dense_sk(dev)
+    t0 = time.perf_counter()
+    sweeper.run(1)                      # warm-up and capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    eager = sweeper.states.clone()
+    u = torch.rand((2, *eager.shape), device=dev, generator=torch.Generator(dev).manual_seed(5))
+    n_band = n_differ = 0
+    for k in range(2):
+        sweeper.u.copy_(u[k])
+        sweeper._graph.replay()
+        band = eager_sweep_band(plan, eager, u[k], sweeper.T)
+        differ = sweeper.states != eager
+        n_band += int(band.sum())
+        n_differ += int(differ.sum())
+        if bool((differ & ~band).any()):
+            raise AssertionError("the graphed colour sweep differs from the eager one outside "
+                                 "the band")
+        eager.copy_(sweeper.states)
+    log(f"4096-spin SK, 8 chains, 2 sweeps: graph == eager outside the band; {n_band} band "
+        f"sites, {n_differ} differ; capture with its warm-up sweep {capture_s:.3f} s")
+    return {"capture_s": capture_s, "band_sites": n_band, "band_differ": n_differ}
+
+
+def phase_dense_paths(dev, name):
+    plan, sweeper = dense_sk(dev)
+    sweeper.run(1)
+    eager_ms = time_sweeps(lambda k: [colour_sweep(plan, sweeper.states, sweeper.u, sweeper.T)
+                                      for _ in range(k)], 2)
+    graph_sweep_ms = time_sweeps(sweeper.run, 20)
+    eager_launches = host_launches(lambda: colour_sweep(plan, sweeper.states, sweeper.u,
+                                                        sweeper.T))
+    graph_launches = host_launches(lambda: sweeper.run(1))
+    log(f"4096-spin SK sweep, 8 chains ({name}): eager {eager_ms:.6f} ms, {eager_launches} "
+        f"host launch calls; graphed {graph_sweep_ms:.6f} ms, {graph_launches} host launch "
+        "calls (the uniforms' draw and the graph)")
+    out = {"eager_ms_per_sweep": eager_ms, "graph_ms_per_sweep": graph_sweep_ms,
+           "eager_host_launches_per_sweep": eager_launches,
+           "graph_host_launches_per_sweep": graph_launches}
+
+    model = IsingModel(DENSE[0], config=IsingConfig(n_chains=DENSE[1]), seed=0, device=dev)
+    model.J = sk_couplings(DENSE[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = model.sample(DENSE[2])
+    out["ising_model_sample_s"] = time.perf_counter() - t0
+    if s.shape != (DENSE[2], DENSE[0]) or not np.all(np.abs(s) == 1.0):
+        raise AssertionError("IsingModel(4096).sample returned no spins")
+    t0 = time.perf_counter()
+    s = IsingGrid((63, 65), periodic=True, seed=0, device=dev).sample(64)
+    out["odd_grid_sample_s"] = time.perf_counter() - t0
+    if s.shape != (64, 63 * 65) or not np.all(np.abs(s) == 1.0):
+        raise AssertionError("IsingGrid((63, 65)).sample returned no spins")
+
+    rng = np.random.default_rng(2000)
+    W = np.triu((rng.random((2000, 2000)) < 0.5).astype(np.float32), 1)
+    W = W + W.T
+    t0 = time.perf_counter()
+    res = optimize(MaxCutProblem(W), seed=torch.Generator().manual_seed(0), device=dev)
+    out["maxcut_dense_s"] = time.perf_counter() - t0
+    cut = -res["best_objective"]
+    greedy, _ = native.greedy_maxcut_csr(*native.csr_from_dense(W), n_restarts=3, seed=0)
+    out.update(maxcut_dense_cut=cut, maxcut_dense_greedy=greedy)
+    log(f"IsingModel(4096).sample(64), 8 chains: {out['ising_model_sample_s']:.3f} s; "
+        f"IsingGrid((63, 65)).sample(64): {out['odd_grid_sample_s']:.3f} s; "
+        f"optimize(MaxCutProblem(G(2000, 0.5))): {out['maxcut_dense_s']:.3f} s, cut {cut:.1f} "
+        f"(native greedy bound {greedy:.1f})")
+    return out
+
+
+def phase_maxcut_sparse(dev):
+    n, m, steps = SPARSE
+    edges, w = suite_graph(n, m)
+    csr = native.csr_from_edges(n, edges, w)
+    greedy, _ = native.greedy_maxcut_csr(*csr, n_restarts=3, seed=0)
+    t0 = time.perf_counter()
+    idx, _ = sparse_ising.ell_from_edges(n, edges, w)
+    ell_s = time.perf_counter() - t0
+    sparse_ising.maxcut_sparse(0, n, edges, w, n_steps=steps, device=dev)      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sparse_ising.maxcut_sparse(0, n, edges, w, n_steps=steps, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched = np.geomspace(3.0, 0.05, 40).astype(np.float32)
+    anneal = [host_launches(lambda: sparse_ising.sparse_anneal(
+        0, idx, -np.ones(idx.shape, np.float32), np.zeros(n, np.float32), sched, n_steps=k,
+        device=dev)) for k in (20, 40)]
+    per_step = (anneal[1] - anneal[0]) / 20
+    cut = out["cut_value"]
+    check = native.cut_value_csr(*csr, out["spins"])
+    log(f"maxcut_sparse {n} nodes, {len(edges)} edges, {steps} steps, 8 chains: ELL build "
+        f"{ell_s:.3f} s (K = {idx.shape[1]}), anneal wall {wall:.3f} s, {per_step:.2f} host launch "
+        f"calls per step (40 steps less 20), cut {cut:.1f} (native check "
+        f"{check:.1f}), native greedy bound {greedy:.1f}")
+    if cut != check:
+        raise AssertionError("maxcut_sparse's cut disagrees with the native cut value")
+    if cut < greedy:
+        raise AssertionError("maxcut_sparse did not reach the native greedy bound")
+    return {"ell_build_s": ell_s, "wall_s": wall, "host_launches_per_step": per_step,
+            "cut": cut, "greedy_bound": greedy, "K": int(idx.shape[1])}
+
+
+class killed_after_first_save:
+    """Within the block, ``module.save_state`` writes its snapshot and then
+    raises, as a run killed right after its first snapshot would stop."""
+
+    def __init__(self, module):
+        self.module, self.real = module, module.save_state
+
+    def __enter__(self):
+        def dying(*args, **kwargs):
+            self.real(*args, **kwargs)
+            raise KeyboardInterrupt("killed after the first snapshot")
+        self.module.save_state = dying
+
+    def __exit__(self, kind, value, tb):
+        self.module.save_state = self.real
+        return kind is KeyboardInterrupt
+
+
+def resumed_equals(what, run, module, path, same):
+    """run(path, resume) with a snapshot path; the run killed after its first
+    snapshot, then resumed, must equal the uninterrupted run."""
+    full = run(None, False)
+    with killed_after_first_save(module):
+        run(path, False)
+        raise AssertionError(f"{what}: the run was not killed at its first snapshot")
+    resumed = run(path, True)
+    if not same(full, resumed):
+        raise AssertionError(f"{what}: the resumed run differs from the uninterrupted one")
+    log(f"resume {what}: killed after its first snapshot, resumed == uninterrupted")
+
+
+def phase_resume(dev, workdir):
+    import os
+
+    gen = np.random.default_rng(28)
+    edges = gen.integers(0, 10_000, (50_000, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    idx, w = sparse_ising.ell_from_edges(10_000, edges, np.ones(len(edges)))
+    sched = np.geomspace(3.0, 0.05, 400).astype(np.float32)
+    resumed_equals(
+        "sparse_anneal 10,000 nodes, 4 chunks",
+        lambda p, r: sparse_ising.sparse_anneal(
+            1, idx, -w, np.zeros(10_000, np.float32), sched, n_steps=400, chunk_steps=100,
+            checkpoint_path=p, resume=r, device=dev),
+        sparse_ising, os.path.join(workdir, "sparse"),
+        lambda a, b: a[1] == b[1] and torch.equal(a[0], b[0]))
+
+    Jh, Jv = pm1_bonds(torch.Generator().manual_seed(28), (256, 256))
+    resumed_equals(
+        "anneal_spin_glass 256^2 ±J, 3 restarts",
+        lambda p, r: anneal_spin_glass(2, Jh, Jv, n_steps=200, n_restarts=3, checkpoint_path=p,
+                                       resume=r, device=dev),
+        annealing, os.path.join(workdir, "anneal"),
+        lambda a, b: a[1] == b[1] and np.array_equal(a[0], b[0]))
+
+    Jh, Jv = pm1_bonds(torch.Generator().manual_seed(29), (64, 64))
+    resumed_equals(
+        "pt_ground_state_search 64^2 ±J, 40 iterations, a snapshot every 10",
+        lambda p, r: pt_ground_state_search(
+            3, Jh, Jv, temperatures=np.geomspace(0.3, 2.0, 16), n_iters=40, n_copies=2,
+            houdayer_every=5, quench_sweeps=16, checkpoint_path=p, checkpoint_every=10,
+            resume=r, device=dev),
+        tempering_ladder, os.path.join(workdir, "ladder"),
+        lambda a, b: a["best_energy"] == b["best_energy"] and np.array_equal(
+            a["best_state"], b["best_state"]))
+
+    lat0 = torch.where(torch.rand((512, 512), generator=torch.Generator().manual_seed(30))
+                       < 0.5, 1.0, -1.0).to(dev)
+    mesh = make_mesh(rows=2, cols=2, devices=[dev] * 4)
+    resumed_equals(
+        "sharded_lattice_sample 512^2 on 2 x 2 shards of one card",
+        lambda p, r: sharded_lattice_sample(
+            mesh, 4, lat0, n_samples=8, temperature=2.269, n_burnin=10, n_sweeps=2,
+            col_axis="col", checkpoint_path=p, checkpoint_every=0 if p is None else 2,
+            resume=r),
+        lattice, os.path.join(workdir, "sharded"),
+        lambda a, b: (torch.equal(a["magnetization"], b["magnetization"])
+                      and torch.equal(a["energy"], b["energy"])
+                      and all(torch.equal(x, y) for x, y in zip(a["final_planes"],
+                                                                 b["final_planes"]))))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1726,6 +2056,29 @@ def main() -> int:
 
     st = phase_sharded_timing(dev, name)
     log("phase 23: timed")
+
+    t_slice4 = time.perf_counter()
+    phase_dense_statistics(dev)
+    log("phase 24: dense statistics on the card agree with exact enumeration")
+
+    graph_check = phase_dense_graph(dev)
+    log("phase 25: the graphed colour sweep == the eager one outside the band")
+
+    dense = phase_dense_paths(dev, name)
+    log("phase 26: the dense paths ran at full width")
+
+    sparse = phase_maxcut_sparse(dev)
+    log("phase 27: maxcut_sparse reached the native greedy bound")
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
+        phase_resume(dev, workdir)
+    log("phase 28: four resumed runs == their uninterrupted runs on the card")
+    slice4_s = time.perf_counter() - t_slice4
+    log(f"phases 24-28 added {slice4_s:.1f} s")
+    log("slice 4: " + json.dumps({"graph_check": graph_check, "dense": dense, "sparse": sparse,
+                                  "seconds": slice4_s, "card": name}))
 
     R, C2 = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2
     site = R * C2                                     # compact sites of one 4096^2 plane

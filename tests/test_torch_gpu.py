@@ -909,3 +909,104 @@ def test_sharded_paths_on_cuda_equal_those_on_cpu(cuda):
                        ("tempering", tempering)):
         for a, b in zip(path(cuda), path(cpu)):
             assert torch.equal(a, b), name
+
+
+# -- slice 4: the dense colour sweep and the sparse anneal on the card ---------
+
+def _sk(n, seed=0):
+    rng = np.random.default_rng(seed)
+    A = np.triu(rng.choice([-1.0, 1.0], (n, n)), 1) / np.sqrt(n)
+    return (A + A.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,chains,sequential", [(512, 8, False), (96, 3, True)])
+def test_dense_sweep_graph_equals_eager_on_the_same_uniforms(cuda, n, chains, sequential):
+    """The captured colour loop replays what the eager loop computes, at
+    every site outside the 1e-6 band around the threshold."""
+    from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper, colour_sweep
+
+    J = _sk(n)
+    plan = ColourPlan(J, np.zeros(n), sequential=sequential, device=cuda)
+    sw = DenseSweeper(plan, chains, 0)
+    sw.load((torch.rand((chains, n), generator=torch.Generator().manual_seed(1)) < 0.5).float())
+    sw.set_temperature(torch.linspace(0.5, 2.0, chains))
+    sw.run(1)                                    # captures the graph
+    assert sw._graph is not None
+    eager = sw.states.clone()
+    u = torch.rand((2, chains, n), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    for k in range(2):
+        sw.u.copy_(u[k])
+        sw._graph.replay()
+        colour_sweep(plan, eager, u[k], sw.T)
+    torch.cuda.synchronize()
+    assert int((sw.states != eager).sum()) == 0
+
+
+def test_dense_routes_on_the_card_match_enumeration(cuda):
+    from tsu_tpu_torch import GibbsConfig, GibbsSampler
+    from tsu_tpu_torch.samplers.tempering import parallel_tempering_dense
+
+    rng = np.random.default_rng(7)
+    J = rng.normal(0, 0.7, (10, 10))
+    J = ((J + J.T) / 2).astype(np.float32)
+    np.fill_diagonal(J, 0)
+    h = rng.normal(0, 0.5, 10).astype(np.float32)
+    states = np.array(np.meshgrid(*[[0.0, 1.0]] * 10)).reshape(10, -1).T
+    E = -0.5 * np.einsum("ki,ij,kj->k", states, J, states) - states @ h
+    w = np.exp(-(E - E.min()))
+    mean = (w / w.sum()) @ states
+    for order, init in (("checkerboard", None), ("sequential", np.zeros(10))):
+        s = GibbsSampler(GibbsConfig(n_burnin=100, n_sweeps=3, n_chains=8, update_order=order),
+                         seed=3, device=cuda)
+        x = s.sample_boltzmann(J, bias=h, n_samples=4000, initial_state=init)
+        assert s.last_route == "device"
+        assert np.all(np.abs(x.mean(axis=0) - mean) < 0.06), order
+    cold, _ = parallel_tempering_dense(0, J, h, temperatures=[1.0, 1.5, 2.3, 3.4],
+                                       n_samples=3000, swap_interval=2, device=cuda)
+    assert np.all(np.abs(cold.cpu().numpy().mean(axis=0) - mean) < 0.07)
+
+
+def test_sparse_anneal_on_the_card_resumes_bit_for_bit(cuda, tmp_path, monkeypatch):
+    from tsu_tpu_torch.ops import sparse_ising
+
+    rng = np.random.default_rng(3)
+    edges = rng.integers(0, 2000, (10000, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    idx, w = sparse_ising.ell_from_edges(2000, edges, np.ones(len(edges)))
+    sched = np.geomspace(3.0, 0.05, 200).astype(np.float32)
+    args = (idx, -w, np.zeros(2000, np.float32), sched)
+    full = sparse_ising.sparse_anneal(4, *args, n_steps=200, n_chains=8, device=cuda)
+    chunked = sparse_ising.sparse_anneal(4, *args, n_steps=200, n_chains=8, chunk_steps=33,
+                                         device=cuda)
+    assert full[1] == chunked[1] and torch.equal(full[0], chunked[0])
+    real_save = sparse_ising.save_state
+
+    def dying_save(*a, **kw):
+        real_save(*a, **kw)
+        raise RuntimeError("killed")
+
+    path = str(tmp_path / "ck")
+    monkeypatch.setattr(sparse_ising, "save_state", dying_save)
+    with pytest.raises(RuntimeError):
+        sparse_ising.sparse_anneal(4, *args, n_steps=200, n_chains=8, chunk_steps=50,
+                                   checkpoint_path=path, device=cuda)
+    monkeypatch.setattr(sparse_ising, "save_state", real_save)
+    resumed = sparse_ising.sparse_anneal(4, *args, n_steps=200, n_chains=8, chunk_steps=50,
+                                         checkpoint_path=path, resume=True, device=cuda)
+    assert full[1] == resumed[1] and torch.equal(full[0], resumed[0])
+
+
+def test_dense_model_and_max_cut_on_the_card(cuda):
+    from tsu_tpu_torch import IsingModel, MaxCutProblem, optimize
+
+    W = np.zeros((300, 300), np.float32)
+    W[:3, 3:6] = 1.0
+    W = W + W.T
+    assert optimize(MaxCutProblem(W), n_steps=200, n_chains=2, seed=5,
+                    device=cuda)["best_objective"] == -9.0
+    m = IsingModel(300, config=IsingConfig(n_chains=4, n_burnin=5, n_sweeps=1), seed=0,
+                   device=cuda)
+    m.J = _sk(300)
+    s = m.sample(8)
+    assert s.shape == (8, 300) and set(np.unique(s)) <= {-1.0, 1.0}
+    assert m._plan_of is not None and m._plan_of[2].J.is_cuda

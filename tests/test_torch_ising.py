@@ -200,22 +200,85 @@ def test_default_device_is_the_card(monkeypatch):
     assert IsingGrid((4, 4), seed=0, device="cpu").device == torch.device("cpu")
 
 
+class _Quadratic(tsu_tpu_torch.OptimizationProblem):
+    """A problem without ``to_ising``: it needs annealed Langevin."""
+
+    def objective(self, x):
+        return float(np.sum(np.asarray(x) ** 2))
+
+    @property
+    def dimension(self):
+        return 2
+
+
 @pytest.mark.parametrize("call", [
-    lambda: IsingGrid((5, 4), device="cpu"),
-    lambda: IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4))),
-                      device="cpu").set_coupling(0, 5, 1.0),
-    lambda: tsu_tpu_torch.anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)),
-                                            checkpoint_path="ck", device="cpu"),
-    lambda: IsingGrid((4, 4), device="cpu").set_coupling(0, 5, 1.0),
-    lambda: demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1,
-                                         device="cpu"),
-    lambda: tsu_tpu_torch.sharded_lattice_sample(
-        tsu_tpu_torch.make_mesh(rows=2, devices=["cpu"] * 2), 0, torch.ones(4, 4),
-        n_samples=1, temperature=2.0, checkpoint_path="ck"),
+    lambda: tsu_tpu_torch.IsingChain(4, device="cpu").visualize(np.ones(4)),
+    lambda: tsu_tpu_torch.optimize(_Quadratic(), seed=0, device="cpu"),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="slice"):
         call()
+
+
+def _sample_dense_5x4():
+    grid = IsingGrid((5, 4), periodic=True, seed=0, device="cpu",
+                     config=IsingConfig(n_burnin=5, n_sweeps=1))
+    ref = JaxIsingGrid((5, 4), periodic=True, use_pallas=False)
+    assert np.array_equal(grid.J, ref.J)
+    return grid.sample(8)
+
+
+def _sample_after_non_local_coupling():
+    grid = IsingGrid((4, 4), seed=0, device="cpu", config=IsingConfig(n_burnin=5, n_sweeps=1))
+    grid.set_coupling(0, 5, 1.0)
+    ref = JaxIsingGrid((4, 4), use_pallas=False)
+    ref.set_coupling(0, 5, 1.0)
+    assert np.array_equal(grid.J, ref.J)
+    return grid.sample(8)
+
+
+def _anneal_with_checkpoint(tmp_path):
+    best, e = tsu_tpu_torch.anneal_spin_glass(
+        0, np.ones((4, 4)), np.ones((4, 4)), n_steps=50,
+        checkpoint_path=str(tmp_path / "ck"), device="cpu")
+    assert (tmp_path / "ck").is_file() and e == -32.0
+    return best
+
+
+def _scan_with_odd_size(tmp_path):
+    out = demonstrate_phase_transition(sizes=[8, 5], temperatures=[2.0], n_samples=1,
+                                       device="cpu")
+    assert sorted(out) == [5, 8]
+    return np.concatenate([out[5]["magnetization"], out[8]["magnetization"]])
+
+
+def _sharded_with_checkpoint_path(tmp_path):
+    out = tsu_tpu_torch.sharded_lattice_sample(
+        tsu_tpu_torch.make_mesh(rows=2, devices=["cpu"] * 2), 0, torch.ones(4, 4),
+        n_samples=1, temperature=2.0, checkpoint_path=str(tmp_path / "ck"))
+    assert not (tmp_path / "ck").exists()      # checkpoint_every = 0: no snapshots
+    return out["magnetization"].numpy()
+
+
+@pytest.mark.parametrize("call", [
+    lambda tmp: _sample_dense_5x4(),
+    lambda tmp: _sample_after_non_local_coupling(),
+    _anneal_with_checkpoint,
+    _scan_with_odd_size,
+    _sharded_with_checkpoint_path,
+])
+def test_calls_of_earlier_not_ported_slices_now_run(call, tmp_path):
+    """The calls that raised "not ported" before slice 4 and checkpoint.py
+    came: each runs and returns spins or observables in range."""
+    out = np.asarray(call(tmp_path))
+    assert np.all(np.isfinite(out)) and np.all(np.abs(out) <= 1.0)
+
+
+def test_non_local_coupling_on_a_grid_with_bonds_raises():
+    """As the JAX package: bond planes do not mix with non-local couplings."""
+    grid = IsingGrid((4, 4), bonds=(np.ones((4, 4)), np.ones((4, 4))), device="cpu")
+    with pytest.raises(ConfigurationError, match="mix"):
+        grid.set_coupling(0, 5, 1.0)
 
 
 def test_find_ground_state_returns_a_flat_state_and_its_energy():

@@ -259,11 +259,41 @@ def test_sampler_energies_are_those_of_the_merged_planes(rows, cols, periodic):
     assert float(out["magnetization"][-1]) == float(lat.mean())
 
 
-def test_sampler_checkpoint_waits_for_slice_5():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        sharded_lattice_sample(make_mesh(rows=2, devices=CPU4), 0, torch.ones(4, 4),
-                               n_samples=2, temperature=2.0, checkpoint_path="ck",
-                               checkpoint_every=1)
+@pytest.mark.parametrize("rows,cols,killed_after", [(2, 1, 1), (2, 2, 2), (2, 2, None)])
+def test_sampler_killed_and_resumed_equals_uninterrupted(tmp_path, monkeypatch, rows, cols,
+                                                         killed_after):
+    """A run killed after a snapshot and resumed returns the uninterrupted
+    run's observables and planes bit for bit; with no snapshot on disk,
+    resume runs from the start (no crash window between two files)."""
+    from tsu_tpu_torch.parallel import lattice as plat
+
+    mesh = make_mesh(rows=rows, cols=cols, devices=CPU4[:rows * cols])
+    lat0 = torch.where(torch.rand((8, 8), generator=torch.Generator().manual_seed(2)) < 0.5,
+                       1.0, -1.0)
+    kw = dict(n_samples=6, temperature=2.3, n_burnin=3, n_sweeps=2,
+              col_axis="col" if cols > 1 else None)
+    full = sharded_lattice_sample(mesh, 5, lat0, **kw)
+    path = str(tmp_path / "ck")
+    if killed_after is not None:
+        real_save, calls = plat.save_state, []
+
+        def dying_save(*args, **kwargs):
+            real_save(*args, **kwargs)
+            calls.append(1)
+            if len(calls) == killed_after:
+                raise RuntimeError("killed")
+
+        monkeypatch.setattr(plat, "save_state", dying_save)
+        with pytest.raises(RuntimeError, match="killed"):
+            sharded_lattice_sample(mesh, 5, lat0, checkpoint_path=path, checkpoint_every=2,
+                                   **kw)
+        monkeypatch.setattr(plat, "save_state", real_save)
+    resumed = sharded_lattice_sample(mesh, 5, lat0, checkpoint_path=path, checkpoint_every=2,
+                                     resume=True, **kw)
+    assert torch.equal(resumed["magnetization"], full["magnetization"])
+    assert torch.equal(resumed["energy"], full["energy"])
+    for a, b in zip(resumed["final_planes"], full["final_planes"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("rows,cols", [(4, 1), (2, 2)])

@@ -102,14 +102,13 @@ def test_energies_and_set_coupling_match_jax_grid(periodic):
      ConfigurationError),
     (lambda: IsingGrid((4, 4), device=CPU).set_bonds(np.ones((2, 4)), np.ones((4, 4))),
      ConfigurationError),
-    (lambda: IsingGrid((4, 4), periodic=False, device=CPU).set_coupling(0, 3, 1.0),
-     NotImplementedError),
-    (lambda: anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)), checkpoint_path="ck",
-                               device=CPU),
-     NotImplementedError),
-    (lambda: anneal_spin_glass(0, np.ones((4, 4)), np.ones((4, 4)), resume=True,
-                               device=CPU),
-     NotImplementedError),
+    (lambda: IsingGrid((4, 4), periodic=False, device=CPU,
+                       bonds=(np.ones((4, 4)), np.ones((4, 4)))).set_coupling(0, 3, 1.0),
+     ConfigurationError),
+    (lambda: IsingGrid((5, 4), device=CPU, bonds=(np.ones((5, 4)), np.ones((5, 4)))),
+     ConfigurationError),
+    (lambda: IsingGrid((5, 4), device=CPU).set_bonds(np.ones((5, 4)), np.ones((5, 4))),
+     ConfigurationError),
 ])
 def test_bond_error_paths(call, error):
     with pytest.raises(error):
@@ -205,3 +204,32 @@ def test_pt_bonds_identical_temperatures_always_swap():
                                        n_samples=16, n_burnin=4, swap_interval=1, device=CPU)
     assert np.all(info["pair_acceptance"] == 1.0)
     assert int(info["pair_attempts"].sum()) == info["swap_attempts"]
+
+
+@pytest.mark.parametrize("killed_after", [None, 1, 2])
+def test_anneal_spin_glass_resumes_bit_for_bit(tmp_path, monkeypatch, killed_after):
+    """Killed after a restart's snapshot and resumed, the search returns what
+    the uninterrupted one returns; ``resume=True`` without a snapshot runs
+    from the start."""
+    from tsu_tpu_torch.samplers import annealing
+
+    Jh, Jv = _pm1(3, 8)
+    kw = dict(n_steps=40, n_restarts=3, device=CPU)
+    full = anneal_spin_glass(7, Jh, Jv, **kw)
+    path = str(tmp_path / "ck")
+    if killed_after is not None:
+        real_save, calls = annealing.save_state, []
+
+        def dying_save(*args, **kwargs):
+            real_save(*args, **kwargs)
+            calls.append(1)
+            if len(calls) == killed_after:
+                raise RuntimeError("killed")
+
+        monkeypatch.setattr(annealing, "save_state", dying_save)
+        with pytest.raises(RuntimeError, match="killed"):
+            anneal_spin_glass(7, Jh, Jv, checkpoint_path=path, **kw)
+        monkeypatch.setattr(annealing, "save_state", real_save)
+    resumed = anneal_spin_glass(7, Jh, Jv, checkpoint_path=path, resume=True, **kw)
+    assert resumed[1] == full[1]
+    assert np.array_equal(resumed[0], full[0])

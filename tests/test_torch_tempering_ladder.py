@@ -161,7 +161,7 @@ def test_pt_ground_state_search_is_exact_on_an_enumerable_instance():
     assert e_check == out["best_energy"]
 
 
-def test_pt_ground_state_search_with_copies_and_houdayer():
+def test_pt_ground_state_search_with_copies_and_houdayer(tmp_path):
     Jh, Jv = _pm1(21, 8)
     kw = dict(temperatures=np.geomspace(0.4, 2.0, 6), n_iters=60, n_sweeps=1, n_copies=2,
               houdayer_every=5, quench_sweeps=6)
@@ -172,9 +172,10 @@ def test_pt_ground_state_search_with_copies_and_houdayer():
     np.testing.assert_array_equal(out["pair_attempts"], ref["pair_attempts"])
     assert out["discrete_table_path"] is True
     assert pt_ground_state_search(1, Jh, Jv, device="cpu", **kw)["best_energy"] == out["best_energy"]
-    with pytest.raises(NotImplementedError):
-        pt_ground_state_search(1, Jh, Jv, checkpoint_path="ck", device="cpu",
-                               **kw)
+    ck = pt_ground_state_search(1, Jh, Jv, checkpoint_path=str(tmp_path / "ck"),
+                                checkpoint_every=20, device="cpu", **kw)
+    assert ck["best_energy"] == out["best_energy"]
+    assert np.array_equal(ck["best_state"], out["best_state"])
 
 
 def test_pt_ground_state_search_records_a_best_energy_lowered_by_houdayer(monkeypatch):
@@ -201,3 +202,37 @@ def test_pt_ground_state_search_records_a_best_energy_lowered_by_houdayer(monkey
     assert moved == [1]
     assert out["best_energy"] == -2 * L * L
     np.testing.assert_array_equal(out["best_state"], g)
+
+
+@pytest.mark.parametrize("killed_after,n_copies", [(1, 1), (2, 2)])
+def test_pt_ground_state_search_killed_and_resumed_equals_uninterrupted(
+        tmp_path, monkeypatch, killed_after, n_copies):
+    """Mirror of the JAX package's resume test: the search killed after a
+    snapshot and resumed from it returns the uninterrupted search's best
+    state and energy, bit for bit."""
+    from tsu_tpu_torch.samplers import tempering_ladder as tl
+
+    Jh, Jv = _pm1(9, 8)
+    kw = dict(temperatures=np.geomspace(0.4, 2.0, 6), n_iters=60, n_sweeps=1,
+              quench_sweeps=6, n_copies=n_copies, houdayer_every=5 if n_copies > 1 else 0,
+              device="cpu")
+    full = pt_ground_state_search(4, Jh, Jv, **kw)
+    path = str(tmp_path / "ck")
+    real_save, calls = tl.save_state, []
+
+    def dying_save(*args, **kwargs):
+        real_save(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == killed_after:
+            raise RuntimeError("killed")
+
+    monkeypatch.setattr(tl, "save_state", dying_save)
+    with pytest.raises(RuntimeError, match="killed"):
+        pt_ground_state_search(4, Jh, Jv, checkpoint_path=path, checkpoint_every=20, **kw)
+    monkeypatch.setattr(tl, "save_state", real_save)
+    resumed = pt_ground_state_search(4, Jh, Jv, checkpoint_path=path, checkpoint_every=20,
+                                     resume=True, **kw)
+    assert resumed["best_energy"] == full["best_energy"]
+    assert np.array_equal(resumed["best_state"], full["best_state"])
+    np.testing.assert_array_equal(resumed["pair_attempts"], full["pair_attempts"])
+    assert resumed["swap_acceptance_rate"] == full["swap_acceptance_rate"]

@@ -1,7 +1,8 @@
-"""Exception hierarchy, the validated, immutable Ising configuration and the
-device an entry point runs on.
+"""Exception hierarchy, the validated, immutable Gibbs and Ising
+configurations and the device an entry point runs on.
 
-The errors and ``IsingConfig`` are copied from ``tsu_tpu/config.py``:
+The errors, ``GibbsConfig`` and ``IsingConfig`` are copied from
+``tsu_tpu/config.py``:
 importing that module runs ``tsu_tpu/__init__.py``, which imports JAX, so the
 PyTorch port keeps its own copy.
 """
@@ -29,6 +30,42 @@ class SamplingError(TSUError):
 def _require(cond: bool, msg: str):
     if not cond:
         raise ConfigurationError(msg)
+
+
+@dataclass(frozen=True)
+class GibbsConfig:
+    """Configuration for dense Gibbs sampling.
+
+    Attributes:
+        temperature: sampling temperature T > 0.
+        n_burnin: burn-in sweeps before the first retained sample.
+        n_sweeps: sweeps between retained samples (thinning).
+        update_order: "checkerboard" (default: graph-coloured block sweeps),
+            "sequential" (sites one at a time in index order) or "random"
+            (the site order drawn anew every sweep). All three have the
+            same invariant distribution.
+        n_chains: independent chains run in parallel.
+    """
+
+    temperature: float = 1.0
+    n_burnin: int = 100
+    n_sweeps: int = 10
+    update_order: str = "checkerboard"
+    n_chains: int = 1
+
+    def __post_init__(self):
+        _require(self.temperature > 0, f"temperature must be positive, got {self.temperature}")
+        _require(self.n_burnin >= 0, f"n_burnin must be non-negative, got {self.n_burnin}")
+        _require(self.n_sweeps > 0, f"n_sweeps must be positive, got {self.n_sweeps}")
+        _require(
+            self.update_order in ("checkerboard", "sequential", "random"),
+            "update_order must be 'checkerboard', 'sequential' or "
+            f"'random', got {self.update_order!r}",
+        )
+        _require(self.n_chains > 0, f"n_chains must be positive, got {self.n_chains}")
+
+    def replace(self, **kwargs) -> "GibbsConfig":
+        return dataclasses.replace(self, **kwargs)
 
 
 @dataclass(frozen=True)

@@ -2,9 +2,10 @@
 
 ``tsu_tpu`` keeps a lattice as a numpy-convertible (R, C) array or as a pair
 of compact (R, C/2) planes, its bond state as per-colour weight or code
-planes, and its ``IsingConfig`` as a frozen dataclass. These helpers turn
-each into the port's tensors and config without importing ``tsu_tpu``:
-callers hand over numpy arrays and plain fields.
+planes, a dense model as numpy (J, h), a sparse graph as ELL arrays, and its
+``IsingConfig`` as a frozen dataclass. These helpers turn each into the
+port's tensors, models and config without importing ``tsu_tpu``: callers
+hand over numpy arrays and plain fields.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch.config import ConfigurationError, IsingConfig
+from tsu_tpu_torch.energy import DenseBoltzmann
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 
 
@@ -76,3 +78,36 @@ def bond_weights_from_numpy(weights, *, device=None) -> dict:
             raise ConfigurationError(f"{color} code plane must be 2-D integers 0..170")
         out[color] = torch.tensor(code.astype(np.uint8), device=device)
     return out
+
+
+def dense_model_from_numpy(J, h, *, kind: str = "ising", config=None, seed=None, device=None):
+    """A dense model from numpy (J, h): an ``IsingModel`` over spins
+    (``kind="ising"``, with ``config`` and ``seed``) or a ``DenseBoltzmann``
+    energy over bits (``kind="boltzmann"``) with float32 tensors on
+    ``device``."""
+    J = np.asarray(J, np.float32)
+    h = np.asarray(h, np.float32).reshape(-1)
+    if J.ndim != 2 or J.shape != (h.shape[0], h.shape[0]):
+        raise ConfigurationError(f"J must be (n, n) and h (n,), got {J.shape} and {h.shape}")
+    if kind == "boltzmann":
+        return DenseBoltzmann(torch.tensor(J, device=device), torch.tensor(h, device=device))
+    if kind != "ising":
+        raise ConfigurationError(f"kind must be 'ising' or 'boltzmann', got {kind!r}")
+    from tsu_tpu_torch.models.ising import IsingModel
+
+    model = IsingModel(J.shape[0], config=config, seed=seed, device=device)
+    model.J = J.copy()
+    model.h = h.copy()
+    return model
+
+
+def ell_from_numpy(neighbor_idx, neighbor_w, *, device=None):
+    """The JAX package's ELL arrays ((N, K) indices padded with N, (N, K)
+    weights) as the port's int64 and float32 tensors."""
+    idx = np.asarray(neighbor_idx)
+    w = np.asarray(neighbor_w, np.float32)
+    if idx.ndim != 2 or idx.shape != w.shape:
+        raise ConfigurationError(f"ELL arrays must share one (N, K) shape, got "
+                                 f"{idx.shape} and {w.shape}")
+    return (torch.tensor(idx.astype(np.int64), device=device),
+            torch.tensor(w, device=device))

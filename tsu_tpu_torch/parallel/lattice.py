@@ -43,7 +43,7 @@ from tsu_tpu_torch.ops.checkerboard_fused import fused_sweep, sigmoid_table16
 from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep
 from tsu_tpu_torch.parallel.mesh import Mesh
 from tsu_tpu_torch.rng import as_generator
-from tsu_tpu_torch.samplers.annealing import checkpoint_not_ported
+from tsu_tpu_torch.checkpoint import checkpoint_exists, restore_state, save_state
 
 
 def _spatial_devices(mesh: Mesh, axis_name: str, col_axis) -> list:
@@ -300,11 +300,15 @@ def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_sample
     run's base under the global sweep counter s. ``fused`` as in
     :func:`sharded_checkerboard_sweeps`. ``dtype``: plane storage, default
     bfloat16 on the fused path (±1 spins are exact in it) and float32
-    otherwise. ``checkpoint_path`` and ``resume`` raise
-    ``NotImplementedError``.
+    otherwise.
+
+    ``checkpoint_path`` with ``checkpoint_every > 0`` snapshots the run
+    after every ``checkpoint_every`` samples: the base, the merged planes,
+    the samples done and the observables so far, all in one file written
+    under a temporary name and renamed. ``resume=True`` continues from that
+    snapshot when it exists (and starts afresh when it does not), so the
+    resumed run returns exactly what the uninterrupted one would.
     """
-    if checkpoint_path is not None or checkpoint_every or resume:
-        raise checkpoint_not_ported("sharded_lattice_sample")
     R, C = lattice0.shape
     devs, fused = _route(mesh, R, C // 2, axis_name, col_axis, fused, None)
     if dtype is None:
@@ -315,15 +319,29 @@ def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_sample
     col_sharded = col_axis is not None
     run = dict(fused=fused, base=base, T=temperature, periodic=periodic, J=J, field=field,
                col_sharded=col_sharded)
-    reds, blacks = _run_sweeps(reds, blacks, range(n_burnin), **run)
     dev = devs[0][0]
     ms = torch.empty(n_samples, dtype=torch.float64, device=dev)
     es = torch.empty(n_samples, dtype=torch.float64, device=dev)
-    for i in range(n_samples):
+    checkpointing = checkpoint_path is not None and checkpoint_every > 0
+    done = 0
+    if resume and checkpointing and checkpoint_exists(checkpoint_path):
+        st = restore_state(checkpoint_path, {
+            "base": 0, "red": red, "black": black, "done": 0, "ms": ms, "es": es})
+        run["base"], done = st["base"], st["done"]
+        reds, blacks = _scatter(st["red"], devs), _scatter(st["black"], devs)
+        ms.copy_(st["ms"])
+        es.copy_(st["es"])
+    else:
+        reds, blacks = _run_sweeps(reds, blacks, range(n_burnin), **run)
+    for i in range(done, n_samples):
         start = n_burnin + i * n_sweeps
         reds, blacks = _run_sweeps(reds, blacks, range(start, start + n_sweeps), **run)
         spins, es[i] = _local_observables(reds, blacks, periodic, J, field, col_sharded)
         ms[i] = spins / (R * C)
+        if checkpointing and ((i + 1) % checkpoint_every == 0 or i + 1 == n_samples):
+            save_state(checkpoint_path, {
+                "base": run["base"], "red": _gather(reds), "black": _gather(blacks),
+                "done": i + 1, "ms": ms, "es": es})
     return {"magnetization": ms.cpu(), "energy": es.cpu(),
             "final_planes": (_gather(reds), _gather(blacks))}
 

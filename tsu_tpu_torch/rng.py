@@ -44,6 +44,14 @@ def as_generator(seed: Union[int, torch.Generator, None]) -> torch.Generator:
     return gen
 
 
+def device_generator(seed, device) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw from ``seed`` (an int or
+    a CPU ``torch.Generator``): the stream of a run's device-side draws."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(torch.randint(0, 2**62, (), generator=as_generator(seed))))
+    return gen
+
+
 def to_int32(x: int) -> int:
     """Wrap a Python int to the signed 32-bit range (two's complement)."""
     return ((int(x) + 2**31) & MASK32) - 2**31

@@ -1,6 +1,9 @@
-"""Simulated annealing of 2-D lattices through the sweep kernels.
+"""Simulated annealing: dense bit-Boltzmann models, and 2-D lattices
+through the sweep kernels.
 
-Counterpart of ``tsu_tpu/samplers/annealing.py``: ``make_schedule``, the
+Counterpart of ``tsu_tpu/samplers/annealing.py``: ``make_schedule``,
+``simulated_annealing_dense`` (the native host loop for small problems, the
+graphed colour sweep of ``samplers/gibbs.py`` for the rest), the
 fused branch of ``anneal_lattice`` (all chains sweep together, one batched
 launch per sweep of the schedule, the best state tracked every
 ``track_every`` sweeps), the gates of the ±J table path
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tsu_tpu_torch.checkpoint import checkpoint_exists, restore_state, save_state
 from tsu_tpu_torch.config import resolve_device
 from tsu_tpu_torch.models.lattice_sampler import SEED_STRIDE
 from tsu_tpu_torch.ops.checkerboard import (
@@ -30,12 +34,7 @@ from tsu_tpu_torch.ops.checkerboard_bonds import (
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_kernel_weights, bond_key, bond_sweeps
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps_keyed, sigmoid_table, sigmoid_table16
 from tsu_tpu_torch.rng import as_generator, sweep_keys, to_int32
-
-
-def checkpoint_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"checkpoint/resume of {what} is not ported to tsu_tpu_torch yet (slice 5 of "
-        "ROADMAP.md, which ports checkpoint.py)")
+from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper
 
 
 def make_schedule(T_initial: float, T_final: float, n_steps: int,
@@ -48,6 +47,48 @@ def make_schedule(T_initial: float, T_final: float, n_steps: int,
     if kind == "linear":
         return np.float32(T_initial) + np.float32(T_final - T_initial) * t
     raise ValueError(f"unknown cooling schedule {kind!r}")
+
+
+def simulated_annealing_dense(seed, J, h, *, T_initial: float = 10.0, T_final: float = 0.1,
+                              n_steps: int = 1000, cooling_schedule: str = "exponential",
+                              n_chains: int = 1, device=None):
+    """Anneal bit states of a dense (J, h); returns (best_state (n,) float32
+    numpy array, best_energy) over all chains and steps.
+
+    An int ``seed`` on a small problem (n <= 256 and n^2 * n_steps *
+    n_chains <= 2^31) runs the native host loop (site by site in index
+    order, chains one after another; the energy a numpy float32). Everything
+    else anneals on ``device`` (default the card): all chains take one
+    colour sweep per temperature of the schedule (a CUDA graph on the card)
+    and the best state of each chain is tracked after every sweep, the
+    initial state counting as a candidate; the energy is a float.
+    ``seed``: an int or a CPU ``torch.Generator``.
+    """
+    J_np = np.asarray(J, np.float32)
+    h_np = np.asarray(h, np.float32)
+    n = J_np.shape[0]
+    schedule = make_schedule(T_initial, T_final, n_steps, cooling_schedule)
+    small = n <= 256 and n * n * n_steps * max(n_chains, 1) <= (1 << 31)
+    if small and isinstance(seed, (int, np.integer)):
+        from tsu_tpu_torch.native import sa_dense_native
+
+        state, e = sa_dense_native(J_np, h_np, schedule, n_chains, int(seed))
+        return state, np.float32(e)
+    gen = as_generator(seed)
+    plan = ColourPlan(J_np, h_np, device=device)
+    sweeper = DenseSweeper(plan, n_chains, gen)
+    sweeper.load((torch.rand((n_chains, n), generator=gen) < 0.5).to(torch.float32))
+    best = sweeper.states.clone()
+    best_e = sweeper.energies()
+    for T in schedule.tolist():
+        sweeper.set_temperature(T)
+        sweeper.run(1)
+        e = sweeper.energies()
+        better = (e < best_e)[:, None]
+        torch.where(better, sweeper.states, best, out=best)
+        torch.minimum(e, best_e, out=best_e)
+    i = int(torch.argmin(best_e))
+    return plan.from_plan(best[i]).cpu().numpy(), float(best_e[i])
 
 
 def anneal_lattice(seed, shape, *, J: float = 1.0, field: float = 0.0,
@@ -135,11 +176,14 @@ def anneal_spin_glass(seed, Jh, Jv, *, field: float = 0.0, T_initial: float = 3.
     The best state is tracked every ``max(1, n_steps // 20)`` sweeps; chunk
     i draws from the stream id seed + i * SEED_STRIDE, its half-sweeps keyed
     (fold_seed(id, colour), sweep within the chunk). The energy returned is
-    ``lattice_energy_bonds`` of the state returned. ``checkpoint_path`` and
-    ``resume`` raise ``NotImplementedError``.
+    ``lattice_energy_bonds`` of the state returned.
+
+    ``checkpoint_path`` snapshots the best state, its energy, the restarts
+    done and the state of the generator after each finished restart;
+    ``resume=True`` restores that snapshot, when it exists, and runs the
+    restarts left, so the resumed search returns exactly what the
+    uninterrupted one would from the same seed.
     """
-    if checkpoint_path is not None or resume:
-        raise checkpoint_not_ported("anneal_spin_glass")
     device = resolve_device(device)
     gen = as_generator(seed)
     Jh = torch.as_tensor(Jh, dtype=torch.float32).to(device)
@@ -154,7 +198,15 @@ def anneal_spin_glass(seed, Jh, Jv, *, field: float = 0.0, T_initial: float = 3.
     track_every = max(1, n_steps // 20)
 
     best_state, best_e = None, float("inf")
-    for _ in range(n_restarts):
+    r_start = 0
+    if resume and checkpoint_path is not None and checkpoint_exists(checkpoint_path):
+        st = restore_state(checkpoint_path, {
+            "best_state": np.zeros((R, C), np.float32), "best_e": 0.0, "restarts_done": 0,
+            "generator": gen.get_state()})
+        r_start = st["restarts_done"]
+        best_state, best_e = st["best_state"], st["best_e"]
+        gen.set_state(st["generator"])
+    for r in range(r_start, n_restarts):
         up = torch.rand((R, C), generator=gen) < 0.5
         run_seed = int(torch.randint(0, 2**30, (), generator=gen))
         red, black = split_checkerboard(torch.where(up, 1.0, -1.0).to(device, dtype))
@@ -177,4 +229,7 @@ def anneal_spin_glass(seed, Jh, Jv, *, field: float = 0.0, T_initial: float = 3.
         e = float(lattice_energy_bonds(lattice, Jh, Jv, field, periodic=periodic))
         if e < best_e:
             best_state, best_e = lattice.cpu().numpy(), e
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, {"best_state": best_state, "best_e": best_e,
+                                         "restarts_done": r + 1, "generator": gen.get_state()})
     return best_state, best_e

@@ -1,8 +1,10 @@
-"""Parallel tempering (replica exchange) of 2-D lattices on the batched sweep
-kernels.
+"""Parallel tempering (replica exchange) of dense Boltzmann models and of 2-D
+lattices on the batched sweep kernels.
 
 Counterpart of ``tsu_tpu/samplers/tempering.py``: ``_swap_permutation``, the
 generic loop ``_state_exchange_run``, ``_pt_info``,
+``parallel_tempering_dense`` (every replica in one colour sweep at its own
+temperature, ``samplers/gibbs.py``),
 ``parallel_tempering_lattice`` (uniform J, the batched fused sweep),
 ``_BondPlaneOps`` and ``parallel_tempering_bonds`` (one bond set, the
 batched bond half-sweep). Every rung sweeps in one batched launch at its own
@@ -39,6 +41,7 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps_keyed, sigmoid_table16
 from tsu_tpu_torch.rng import as_generator, sweep_keys
 from tsu_tpu_torch.samplers.annealing import discrete_table_applicable
+from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper
 
 
 def _swap_permutation(u: torch.Tensor, energies: torch.Tensor,
@@ -123,6 +126,43 @@ def _pt_info(acc_p, att_p, energy_hist, finals) -> dict:
         "energies": energy_hist.cpu().numpy(),
         "final_states": finals.cpu().numpy(),
     }
+
+
+def parallel_tempering_dense(seed, J, h, *, temperatures, n_samples: int = 1000,
+                             swap_interval: int = 10, n_sweeps: int = 1, n_burnin: int = 100,
+                             device=None):
+    """Replica-exchange Gibbs on dense (J, h) over bits on ``device`` (default
+    the card). Returns (cold samples (n_samples, n) float32 tensor on that
+    device, the info dict of :func:`_pt_info`).
+
+    ``temperatures``: (R,) rung temperatures, slot 0 the coldest. Each round
+    takes ``n_sweeps`` colour sweeps of all replicas at once, each replica at
+    its own temperature (one CUDA graph a sweep on the card), then the
+    energies and, every swap_interval rounds, the adjacent swaps. ``seed``:
+    an int or a CPU ``torch.Generator``; the initial bits, the swap uniforms
+    and the seed of the sweeps' device generator are drawn from it.
+    """
+    gen = as_generator(seed)
+    temps = torch.as_tensor(np.asarray(temperatures, np.float32)).reshape(-1)
+    R = temps.shape[0]
+    total = n_burnin + n_samples
+    plan = ColourPlan(J, h, device=device)
+    x0 = (torch.rand((R, plan.n), generator=gen) < 0.5).to(torch.float32)
+    swap_u = torch.rand((total, R), generator=gen).to(plan.device)
+    sweeper = DenseSweeper(plan, R, gen)
+    sweeper.set_temperature(temps)
+    sweeper.load(x0)
+
+    def sweep_all(states, t):
+        sweeper.load(states[0], plan_order=True)
+        return (sweeper.run(n_sweeps),)
+
+    cold, energy_hist, finals, acc_p, att_p = _state_exchange_run(
+        (sweeper.states,), sweep_all, lambda states: sweeper.energies(),
+        (1.0 / temps).to(plan.device), swap_u, total=total, swap_interval=swap_interval,
+        n_burnin=n_burnin)
+    return plan.from_plan(cold[0]), _pt_info(acc_p, att_p, energy_hist,
+                                             plan.from_plan(finals[0]))
 
 
 def parallel_tempering_lattice(seed, shape, *, temperatures, J: float = 1.0,

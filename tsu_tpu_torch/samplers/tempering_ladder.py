@@ -40,7 +40,7 @@ from scipy.special import erfcinv, log_ndtr, ndtr
 from tsu_tpu_torch.ops.checkerboard import wrap_halos
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_sweep_keys
 from tsu_tpu_torch.rng import as_generator
-from tsu_tpu_torch.samplers.annealing import checkpoint_not_ported
+from tsu_tpu_torch.checkpoint import checkpoint_exists, restore_state, save_state
 from tsu_tpu_torch.samplers.tempering import _BondPlaneOps, _swap_permutation
 
 GROWTH_CHECK = 16   # Houdayer cluster-growth steps between fixed-point tests
@@ -361,12 +361,16 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     stream ids, swap uniforms and Houdayer uniforms of every iteration and
     the quench's stream ids are drawn from it up front. ``chunk_iters``
     has no effect here (the reference's launch granularity; its stream,
-    like this one, does not depend on it). ``checkpoint_path`` and
-    ``resume`` raise ``NotImplementedError``. Returns the reference's dict.
+    like this one, does not depend on it).
+
+    ``checkpoint_path`` snapshots the search (the replica planes, the best
+    planes and energies, the swap counts and the iterations done) every
+    ``checkpoint_every`` iterations and after the last; ``resume=True``
+    continues from that snapshot, when it exists. The draws are made up
+    front, so a resumed call with the same seed and arguments returns
+    exactly what the uninterrupted one would. Returns the reference's dict.
     """
-    if checkpoint_path is not None or resume:
-        raise checkpoint_not_ported("pt_ground_state_search")
-    del chunk_iters, checkpoint_every
+    del chunk_iters
     gen = as_generator(seed)
     temps_np = np.sort(np.asarray(temperatures, np.float32).reshape(-1))
     R, C = len(temps_np), int(n_copies)
@@ -397,7 +401,14 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     best_e = ops.energy_planes(reds, blacks)
     acc_p = torch.zeros(max(R - 1, 0), dtype=torch.int32, device=dev)
     att_p = torch.zeros_like(acc_p)
-    for t in range(n_iters):
+    done = 0
+    if resume and checkpoint_path is not None and checkpoint_exists(checkpoint_path):
+        st = restore_state(checkpoint_path, {
+            "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
+            "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": 0})
+        reds, blacks, best_r, best_b = st["reds"], st["blacks"], st["best_r"], st["best_b"]
+        best_e, acc_p, att_p, done = st["best_e"], st["acc_p"], st["att_p"], st["done"]
+    for t in range(done, n_iters):
         reds, blacks = ops.sweep_keyed(reds, blacks, keys[t], modes)
         e = ops.energy_planes(reds, blacks)
         better = (e < best_e)[:, None, None]
@@ -424,6 +435,11 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
             best_b = best_b.index_put((touched,),
                                       torch.where(better, blacks[touched], best_b[touched]))
             best_e = best_e.index_put((touched,), torch.minimum(e, best_e[touched]))
+        if (checkpoint_path is not None and checkpoint_every > 0
+                and ((t + 1) % checkpoint_every == 0 or t + 1 == n_iters)):
+            save_state(checkpoint_path, {
+                "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
+                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": t + 1})
 
     if quench_sweeps > 0:
         # Every slot's best state descends to its local minimum; B restarts

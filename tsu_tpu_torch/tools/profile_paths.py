@@ -5,10 +5,13 @@ Run from the repository root on a machine with a card:
 
     python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR] [--only NAME ...]
 
-Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13, 17
-and 22), once to warm up and once under the profiler. For each path it prints
+Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13, 17,
+22, 26 and 27), once to warm up and once under the profiler; the dense
+sample reuses its model, so the profiled call replays the colour sweep's
+CUDA graph captured by the warm-up. For each path it prints
 the wall time, the device busy time and idle share, the count and device
-time of the port's kernels, the host's kernel launches and their host time,
+time of the port's kernels, the host's launch calls (kernels, and CUDA
+graphs, one call each) and their host time,
 and the operations with the most device time. Busy time sums only the
 events whose ``device_type`` is CUDA: ``key_averages()`` lists a kernel's
 time a second time under the CPU operation that launched it. Then it times
@@ -32,9 +35,10 @@ import time
 import numpy as np
 import torch
 
-from tsu_tpu_torch import IsingGrid, demonstrate_phase_transition
+from tsu_tpu_torch import IsingConfig, IsingGrid, IsingModel, demonstrate_phase_transition
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
+from tsu_tpu_torch.ops.sparse_ising import maxcut_sparse
 from tsu_tpu_torch.ops.checkerboard_fused import (
     fused_sweep,
     fused_sweeps,
@@ -44,7 +48,7 @@ from tsu_tpu_torch.ops.checkerboard_fused import (
 from tsu_tpu_torch.parallel import make_mesh, parallel_tempering_replica_sharded
 from tsu_tpu_torch.rng import sweep_keys
 from tsu_tpu_torch.tools.bench import ea_codes
-from tsu_tpu_torch.tools.timing import card
+from tsu_tpu_torch.tools.timing import LAUNCH_CALLS, card
 from tsu_tpu_torch.samplers import (
     build_tempering_ladder,
     parallel_tempering_bonds,
@@ -55,6 +59,8 @@ from tsu_tpu_torch.samplers import (
 GRID = (4096, 4096)        # the README quick start and the ground-state search
 SCAN = (16, 1024)          # the phase scan: 16 temperatures x 1024^2
 PT = (64, 256, 256)        # tempering: 64 rungs x 256^2
+DENSE = (4096, 8, 64)      # the dense sample: 4,096-spin SK, 8 chains, 64 samples
+SPARSE = (100_000, 500_000, 2000)   # maxcut_sparse at the suite's size: nodes, edges, steps
 TOP = 8                    # device operations listed per path
 KERNEL_NAMES = ("fused_sweep", "bond_halfsweep", "halfsweep_kernel")
 
@@ -70,6 +76,30 @@ def _ladder_search(Jh, Jv, dev):
                                   houdayer_every=10, quench_sweeps=64, device=dev)
 
 
+def sk_couplings(n: int, seed: int = 0) -> np.ndarray:
+    """A Sherrington-Kirkpatrick instance: J_ij = ±1/sqrt(n) from ``seed``,
+    symmetric, zero diagonal (every pair couples, so n colours)."""
+    rng = np.random.default_rng(seed)
+    A = np.triu(rng.choice([-1.0, 1.0], (n, n)), 1) / np.sqrt(n)
+    return (A + A.T).astype(np.float32)
+
+
+def suite_graph(n_nodes: int, n_edges: int, seed: int = 3):
+    """The edges of the optimization suite's sparse MAX-CUT row, drawn as it
+    draws them: uniform endpoints, self-loops dropped, unit weights."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, n_nodes, (n_edges, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    return edges, np.ones(len(edges))
+
+
+def _dense_model(dev) -> IsingModel:
+    n, chains, _ = DENSE
+    model = IsingModel(n, config=IsingConfig(n_chains=chains), seed=0, device=dev)
+    model.J = sk_couplings(n)
+    return model
+
+
 def paths(dev) -> dict:
     B, L = SCAN
     rng = np.random.default_rng(0)
@@ -78,6 +108,8 @@ def paths(dev) -> dict:
     pm1_pt = rng.choice([-1.0, 1.0], (2, *PT[1:])).astype(np.float32)
     red, black = (x.to(dev) for x in split_checkerboard(torch.ones(GRID, dtype=torch.bfloat16)))
     codes = ea_codes(GRID[0], dev)
+    dense = _dense_model(dev)
+    edges, weights = suite_graph(*SPARSE[:2])
     return {
         "sample": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev).sample(
             n_samples=4, temperature=2.269),
@@ -112,6 +144,11 @@ def paths(dev) -> dict:
         "bench K1 call": lambda: fused_sweeps(1, red, black, 2.269, 5000),
         "bench EA call": lambda: checkerboard_sweeps_bonds_kernel(
             1, red, black, codes, 1.2, 1000, discrete=True, pure=True),
+        # Slice 4 (phases 26 and 27): the dense sample on graphed colour
+        # sweeps, and the sparse MAX-CUT anneal at the suite's size.
+        "dense sample 4096": lambda: dense.sample(DENSE[2]),
+        "maxcut sparse 100k": lambda: maxcut_sparse(0, SPARSE[0], edges, weights,
+                                                    n_steps=SPARSE[2], device=dev),
     }
 
 
@@ -130,7 +167,7 @@ def profile_path(fn, tables: list) -> dict:
     device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    launch = [e for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel")]
+    launch = [e for e in events if e.key in LAUNCH_CALLS]
     tables.append(events.table(sort_by="self_device_time_total", row_limit=40))
     return {
         "wall_ms": wall_ms,

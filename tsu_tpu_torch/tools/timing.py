@@ -70,3 +70,18 @@ def unit_ms(fn, n: int, device: torch.device, graph: bool = False) -> float:
     if device.type != "cuda":
         return host_ms(fn, n)
     return graph_ms(fn, n) if graph else event_ms(fn, n)
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
+
+
+def host_launches(fn) -> int:
+    """The host's launch calls (kernels, and CUDA graphs, each one call)
+    while ``fn()`` runs, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
