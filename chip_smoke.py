@@ -145,8 +145,35 @@ Phases, each of which raises on failure:
     resumed, equal to the uninterrupted run bit for bit: sparse_anneal
     (10,000 nodes, 4 chunks), anneal_spin_glass (256^2 ±J, 3 restarts),
     pt_ground_state_search (64^2 ±J, 40 iterations, a snapshot every 10)
-    and sharded_lattice_sample on 2 x 2 shards of one card.
+    and sharded_lattice_sample on 2 x 2 shards of one card;
+29. each continuous step loop (Langevin BAOAB and Euler-Maruyama, MALA's
+    burn-in and main loops, on a mixture and on a 97-parameter BNN
+    posterior, HMC, adaptive HMC, NUTS, annealed SMC, mean-field VI) on
+    one set of draws: its CUDA graph replay == its eager loop on the card
+    bit for bit, and the card's eager loop == the CPU's within 1e-4, at 4
+    chains x dim 4;
+30. continuous statistics on the card: Langevin, MALA, HMC, adaptive HMC
+    and NUTS against the moments of N(0, 1) in dim 4 and of the
+    anisotropic Gaussian of tests/test_nuts.py; annealed SMC's log Z
+    against -d ln 3 (16,384 particles, dim 10); VI against the mean-field
+    optimum of a correlated 2-D Gaussian; p_bit and sample_categorical
+    rates; every route "graph";
+31. the continuous paths at their users' sizes, each from zeroed kernel
+    counts (no lattice kernel may run) with its wall, host launch calls a
+    step, idle share under the profiler, route ("graph", else the run
+    fails) and physics: the README quick start (62,600 BAOAB steps of 16
+    chains, the KS test), the scaling suite's Langevin row (1,024 chains x
+    dim 10), MALA on the full-Bayes row's 1,153-parameter BNN posterior
+    (16 chains, 3,000 burn-in, 32 draws; accept rate in [0.4, 0.75], the
+    energy lower than the start's), NUTS (max_depth 8) and adaptive HMC on
+    it, annealed_smc at 16,384 x 10 and annealed_smc_sharded on 4 shards of
+    one card (== the unsharded run bit for bit), fit_meanfield_vi on the
+    posterior (the ELBO improves) and optimize's annealed-Langevin fallback
+    on a torch objective in dim 10;
+32. ms per step of each sampler's loop, eager and graphed in turns, and
+    the host's launch calls per step of each.
 
+A "slice 4:" and a "slice 5:" JSON log line carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
@@ -170,6 +197,7 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch import (
+    BNNPosterior,
     GibbsConfig,
     GibbsSampler,
     IsingChain,
@@ -177,8 +205,22 @@ from tsu_tpu_torch import (
     IsingGrid,
     IsingModel,
     MaxCutProblem,
+    MixtureOfGaussians,
+    OptimizationProblem,
+    Quadratic,
+    ThermalSamplingUnit,
+    TSUConfig,
+    annealed_smc,
+    annealed_smc_sharded,
     demonstrate_phase_transition,
+    fit_meanfield_vi,
     optimize,
+    sample_hmc,
+    sample_hmc_adaptive,
+    sample_langevin,
+    sample_mala,
+    sample_nuts,
+    validate_distribution,
 )
 from tsu_tpu_torch import native
 from tsu_tpu_torch.ops import sparse_ising
@@ -251,6 +293,14 @@ from tsu_tpu_torch.samplers import (
 )
 from tsu_tpu_torch.samplers import annealing, tempering_ladder
 from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper, colour_sweep
+from tsu_tpu_torch.samplers.hmc import hmc_adaptive_loops, hmc_loop, run_hmc, run_hmc_adaptive
+from tsu_tpu_torch.samplers.langevin import langevin_loop, run_langevin
+from tsu_tpu_torch.samplers.loop import Draws
+from tsu_tpu_torch.samplers.mala import CHUNK as MALA_CHUNK
+from tsu_tpu_torch.samplers.mala import mala_loops, run_mala
+from tsu_tpu_torch.samplers.nuts import nuts_loops, run_nuts
+from tsu_tpu_torch.samplers.smc import run_smc, smc_loop
+from tsu_tpu_torch.samplers.vi import run_vi, vi_loop
 from tsu_tpu_torch.tools import (
     bench,
     halfsweep_bodies,
@@ -258,7 +308,17 @@ from tsu_tpu_torch.tools import (
     kernel_decomposition,
     resident_bodies,
 )
-from tsu_tpu_torch.tools.profile_paths import DENSE, SPARSE, sk_couplings, suite_graph
+from tsu_tpu_torch.tools.profile_paths import (
+    DENSE,
+    FULL_BAYES,
+    QUICK,
+    SPARSE,
+    bnn_start,
+    full_bayes_posterior,
+    profile_once,
+    sk_couplings,
+    suite_graph,
+)
 from tsu_tpu_torch.tools.timing import card, graph_ms, host_launches, host_ms
 from tsu_tpu_torch.tools.timing import event_ms as time_sweeps
 
@@ -1958,6 +2018,483 @@ def phase_resume(dev, workdir):
                                                                  b["final_planes"]))))
 
 
+# -- slice 5: the continuous samplers ----------------------------------------
+
+STATS_CHAINS = 1024          # chains of phase 30's moment checks (NUTS: 256)
+SMC_SIZE = (16_384, 10)      # phase 30/31's annealed SMC: particles, dim
+SCALING = dict(n_chains=1024, dim=10, n_burnin=50, n_samples=50, n_steps=10, dt=0.05)
+NUTS_BNN = dict(chains=16, max_depth=8, n_burnin=50, n_samples=10)   # phase 31
+VI_BNN = dict(n_steps=1000, n_mc=16)
+STATE_ATOL = 1e-4            # card == CPU on the same draws (the CPU tests' tolerance)
+
+
+class Recorded(Draws):
+    """Draws from a generator that keep what they drew, so that other runs
+    can take the same draws (``replay``)."""
+
+    def __init__(self, gen):
+        super().__init__(gen=gen)
+        self.log = {}
+
+    def fill(self, name, kind, out, *bounds):
+        super().fill(name, kind, out, *bounds)
+        self.log.setdefault(name, []).append(out.detach().cpu().clone())
+
+    def replay(self) -> Draws:
+        return Draws(given={k: torch.cat(v) for k, v in self.log.items()})
+
+
+class Precision:
+    """E(x) = (x - m)^T L (x - m) / 2 with its constants kept per device
+    (a correlated Gaussian; mean-field VI's optimum is N(m, 1/L_ii))."""
+
+    def __init__(self, L, m):
+        self.L, self.m, self._on = np.asarray(L, np.float32), np.asarray(m, np.float32), {}
+
+    def __call__(self, x):
+        if x.device not in self._on:
+            self._on[x.device] = (torch.tensor(self.L, device=x.device),
+                                  torch.tensor(self.m, device=x.device))
+        L, m = self._on[x.device]
+        d = x - m
+        return 0.5 * torch.sum(d * (L @ d))
+
+
+def aniso(var0: float, var1: float):
+    """The anisotropic Gaussian of tests/test_nuts.py (variances 9, 0.04)."""
+    def energy(x):
+        return x[0] ** 2 / (2 * var0) + x[1] ** 2 / (2 * var1)
+    return energy
+
+
+ANISO = aniso(9.0, 0.04)
+MIX4 = MixtureOfGaussians(((-1.0, 0.0, 0.5, 0.0), (1.0, 0.5, 0.0, -0.5)), (0.8, 1.1))
+
+
+def exact_runs(bnn):
+    """name -> run(draws, x0, graph) -> (tensor, route) of each step loop,
+    at 4 chains x dim 4 (SMC: 64 particles x 4; VI: the mean of a 4-D fit;
+    MALA also on a (1, 8, 8, 1) BNN posterior, 97 parameters)."""
+    return {
+        "langevin BAOAB": lambda d, x, g: run_langevin(
+            d, x, energy_fn=MIX4, n_samples=10, n_burnin=20, n_steps=5, dt=0.05, graph=g),
+        "langevin Euler-Maruyama": lambda d, x, g: run_langevin(
+            d, x, energy_fn=MIX4, n_samples=10, n_burnin=20, n_steps=5, dt=0.01,
+            underdamped=False, graph=g),
+        "mala": lambda d, x, g: _info_route(run_mala(
+            d, x, energy_fn=MIX4, n_samples=20, n_burnin=30, step_size=0.1, graph=g)),
+        "mala bnn 97": lambda d, x, g: _info_route(run_mala(
+            d, 0.3 * x.repeat(1, 25)[:, :97], energy_fn=bnn, n_samples=10, n_burnin=20,
+            step_size=1e-3, graph=g)),
+        "hmc": lambda d, x, g: (lambda r: (r[0], r[2]))(run_hmc(
+            d, x, energy_fn=MIX4, n_samples=10, n_burnin=10, step_size=0.2, n_leapfrog=6,
+            graph=g)),
+        "hmc_adaptive": lambda d, x, g: _info_route(run_hmc_adaptive(
+            d, x, energy_fn=MIX4, n_samples=20, n_burnin=4, n_leapfrog=8, graph=g)),
+        "nuts": lambda d, x, g: _info_route(run_nuts(
+            d, x, energy_fn=MIX4, n_samples=5, n_burnin=3, max_depth=5, graph=g)),
+        "annealed_smc": lambda d, x, g: (lambda r: (r["particles"][0], r["route"]))(run_smc(
+            d, [3.0 * x.repeat(16, 1)], energy_fn=MIX4, n_steps=12, n_moves=3,
+            ess_threshold=0.6, graph=g)),
+        "fit_meanfield_vi": lambda d, x, g: (lambda r: (torch.cat([r[0].mu, r[0].rho]), r[2]))(
+            run_vi(d, MIX4, 4, x.device, n_steps=50, n_mc=4, graph=g)),
+    }
+
+
+def _info_route(result):
+    samples, info = result
+    return samples, info["route"]
+
+
+def phase_continuous_exact(dev):
+    """Each step loop on one set of draws: the graph replay == the eager
+    loop on the card bit for bit, and the card's eager loop == the CPU's
+    within STATE_ATOL."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(7)
+    xb = rng.uniform(-1, 1, (20, 1)).astype(np.float32)
+    yb = (np.sin(3 * xb) + 0.1 * rng.normal(size=xb.shape)).astype(np.float32)
+    bnn = BNNPosterior(xb, yb, (1, 8, 8, 1))
+    x0 = torch.randn((4, 4), generator=torch.Generator().manual_seed(29))
+    out = {}
+    for k, (name, run) in enumerate(exact_runs(bnn).items()):
+        rec = Recorded(torch.Generator().manual_seed(100 + k))
+        ref, _ = run(rec, x0.clone(), True)
+        eager, route_e = run(rec.replay(), x0.to(dev), False)
+        graph, route_g = run(rec.replay(), x0.to(dev), True)
+        if (route_e, route_g) != ("eager", "graph"):
+            raise AssertionError(f"{name}: routes {route_e}, {route_g}, not eager, graph")
+        if not torch.equal(graph, eager):
+            raise AssertionError(f"{name}: the graph replay differs from the eager loop")
+        err = float((eager.cpu() - ref).abs().max())
+        if not err <= STATE_ATOL:
+            raise AssertionError(f"{name}: the card's eager loop differs from the CPU's by {err}")
+        out[name] = err
+        log(f"{name}: graph == eager bit for bit; card - CPU max |diff| {err:.3g}")
+    return out
+
+
+def _moments(what, flat, mean, std, tol_mean, tol_std):
+    m, sd = flat.mean(axis=0), flat.std(axis=0)
+    log(f"{what}: mean {np.round(m, 4).tolist()}, std {np.round(sd, 4).tolist()} "
+        f"(exact {mean}, {std})")
+    if np.any(np.abs(m - mean) >= tol_mean) or np.any(np.abs(sd - np.asarray(std)) >= tol_std):
+        raise AssertionError(f"{what}: moments differ from the exact ones")
+
+
+def phase_continuous_statistics(dev):
+    C = STATS_CHAINS
+    z4, z2 = np.zeros((C, 4)), np.zeros((C, 2))
+    std_n, std_a, tol_a = [1.0] * 4, [3.0, 0.2], np.array([0.35, 0.03])
+    routes = {}
+    runs = {
+        "langevin": (lambda x, e: (sample_langevin(0, x, energy_fn=e, n_samples=20, dt=0.05,
+                                                   n_burnin=1000, n_steps=50, device=dev),
+                                   sample_langevin.last_route)),
+        "mala": (lambda x, e: _info_route(sample_mala(1, x, energy_fn=e, n_samples=200,
+                                                      n_burnin=2000, device=dev))),
+        "hmc": (lambda x, e: (lambda r: (r[0], sample_hmc.last_route))(sample_hmc(
+            2, x, energy_fn=e, n_samples=100, n_burnin=200,
+            **(dict(step_size=0.1, n_leapfrog=30) if e is ANISO
+               else dict(step_size=0.3, n_leapfrog=8)), device=dev))),
+        "hmc_adaptive": (lambda x, e: _info_route(sample_hmc_adaptive(
+            3, x, energy_fn=e, n_samples=100, n_burnin=400,
+            n_leapfrog=32 if e is ANISO else 16, device=dev))),
+        "nuts": (lambda x, e: _info_route(sample_nuts(
+            4, x[:256], energy_fn=e, n_samples=50, n_burnin=150,
+            max_depth=8 if e is ANISO else 6, device=dev))),
+    }
+    for name, run in runs.items():
+        s, routes[name] = run(z4, Quadratic(0.0, 1.0))
+        _moments(f"{name} N(0, 1) dim 4", s.reshape(-1, 4).cpu().numpy(), 0.0, std_n, 0.08, 0.08)
+        s, _ = run(z2, ANISO)
+        _moments(f"{name} anisotropic (9, 0.04)", s.reshape(-1, 2).cpu().numpy(), 0.0, std_a,
+                 0.35, tol_a)
+    P, d = SMC_SIZE
+    parts = 3.0 * torch.randn((P, d), generator=torch.Generator().manual_seed(30))
+    smc = annealed_smc(5, parts, energy_fn=Quadratic(0.0, 1.0), device=dev)
+    exact = -d * np.log(3.0)
+    log(f"annealed_smc {P} x {d}: log Z {float(smc['log_Z']):.4f} (exact -d ln 3 = {exact:.4f})")
+    if abs(float(smc["log_Z"]) - exact) >= 0.15:
+        raise AssertionError("annealed_smc's log Z differs from -d ln 3")
+    routes["annealed_smc"] = smc["route"]
+    L, m = [[2.0, 1.2], [1.2, 1.5]], [1.0, -1.0]
+    vi = fit_meanfield_vi(6, Precision(L, m), 2, n_steps=2000, device=dev)
+    opt = 1.0 / np.sqrt(np.diag(L))
+    log(f"fit_meanfield_vi, correlated 2-D Gaussian: mu {vi['mu'].cpu().numpy()}, sigma "
+        f"{vi['sigma'].cpu().numpy()} (optimum {m}, {opt})")
+    if (np.abs(vi["mu"].cpu().numpy() - m).max() >= 0.05
+            or np.abs(vi["sigma"].cpu().numpy() - opt).max() >= 0.05):
+        raise AssertionError("fit_meanfield_vi missed the mean-field optimum")
+    routes["fit_meanfield_vi"] = vi["route"]
+    tsu = ThermalSamplingUnit(seed=7, device=dev)
+    n = 200_000
+    for p in (0.1, 0.5, 0.9):
+        rate = tsu.p_bit(p, n).mean()
+        if abs(rate - p) >= 5 * np.sqrt(p * (1 - p) / n):
+            raise AssertionError(f"p_bit({p}) rate {rate}")
+    probs = np.array([0.2, 0.5, 0.3])
+    freqs = np.bincount(tsu.sample_categorical(probs, n), minlength=3) / n
+    if np.any(np.abs(freqs - probs) >= 5 * np.sqrt(probs * (1 - probs) / n)):
+        raise AssertionError(f"sample_categorical frequencies {freqs}")
+    log(f"p_bit and sample_categorical ({n} draws): rates within 5 SE; categorical {freqs}")
+    if any(r != "graph" for r in routes.values()):
+        raise AssertionError(f"a phase-30 path ran eagerly: {routes}")
+    return routes
+
+
+def continuous_path(what, fn, steps: int, check, short=None):
+    """A phase-31 path from zeroed kernel counts: a warm-up call (the
+    capture), a timed call, then a profiled call; ``fn()`` returns (result,
+    route), ``check(result)`` raises on wrong physics. ``short``: (fn,
+    steps) of the same path cut shorter for the profiled call (the
+    profiler's cost grows with the kernels it records, millions on the
+    longest paths); its graphs are the path's own."""
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, route = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    extra = check(result) or {}
+    if route != "graph":
+        raise AssertionError(f"{what} took route {route}")
+    if any(counts()):
+        raise AssertionError(f"{what} launched a lattice kernel: {counts()}")
+    prof_fn, prof_steps = short or (fn, steps)
+    t0 = time.perf_counter()
+    prof = profile_once(prof_fn, [])
+    # The profiler slows the host about twofold on these paths, so beside
+    # its idle share stands the device time it saw a step against the wall
+    # without it.
+    busy_share = prof["busy_ms"] / prof_steps * steps / (wall * 1e3)
+    row = {"wall_s": wall, "steps": steps, "route": route,
+           "host_launches_per_step": prof["host_launches"] / prof_steps,
+           "idle_share": prof["idle_share"], "idle_share_unprofiled": 1.0 - busy_share,
+           "profiled_steps": prof_steps,
+           "profiled_wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+           "profile_s": time.perf_counter() - t0, **extra}
+    log(f"{what}: wall {wall:.3f} s ({wall / steps * 1e3:.4f} ms a step, {steps} steps), "
+        f"route {route}; under the profiler ({prof_steps} steps): "
+        f"{row['host_launches_per_step']:.3f} host launch calls a step, idle "
+        f"{prof['idle_share']:.1%} (its device time a step against the wall without it: "
+        f"{1.0 - busy_share:.1%} idle)" + "".join(f", {k} {v}" for k, v in extra.items()))
+    return row
+
+
+def phase_continuous_paths(dev):
+    out = {}
+    chains, n = QUICK
+
+    def quick(samples=n):
+        tsu = ThermalSamplingUnit(TSUConfig(n_chains=chains), seed=0, device=dev)
+        return tsu.sample_gaussian(0.0, 1.0, samples), tsu.last_route
+
+    def quick_check(s):
+        v = validate_distribution(s, "gaussian", {"mu": 0.0, "sigma": 1.0})
+        if not v["valid"] or s.shape != (n,):
+            raise AssertionError(f"the quick start's samples fail the KS test: {v}")
+        return {"ks_p_value": v["p_value"], "mean": v["sample_mean"], "std": v["sample_std"]}
+
+    per_chain = -(-n // chains)
+    out["readme_quick_start"] = continuous_path(
+        f"README quick start ThermalSamplingUnit(TSUConfig(n_chains={chains}))"
+        f".sample_gaussian(0, 1, {n})", quick, 100 + per_chain * 100, quick_check,
+        short=(lambda: quick(n // 20), 100 + -(-n // 20 // chains) * 100))
+
+    sc = SCALING
+
+    def scaling():
+        s = sample_langevin(0, np.zeros((sc["n_chains"], sc["dim"])),
+                            energy_fn=Quadratic(0.0, 1.0), n_samples=sc["n_samples"],
+                            dt=sc["dt"], n_burnin=sc["n_burnin"], n_steps=sc["n_steps"],
+                            device=dev)
+        return s, sample_langevin.last_route
+
+    def scaling_check(s):
+        s = s.cpu().numpy()
+        if abs(s.mean()) >= 0.02 or abs(s.var() - 1.0) >= 0.05:
+            raise AssertionError(f"scaling row moments {s.mean()}, {s.var()}")
+        return {"mean": float(s.mean()), "var": float(s.var())}
+
+    out["scaling_langevin"] = continuous_path(
+        "scaling suite's Langevin row, 1024 chains x dim 10", scaling,
+        sc["n_burnin"] + sc["n_samples"] * sc["n_steps"], scaling_check)
+
+    post = full_bayes_posterior()
+    fb = FULL_BAYES
+    start = bnn_start(post, fb["chains"]).to(dev)
+    e_start = float(torch.func.vmap(post)(start).mean())
+
+    def mala(burnin=fb["burnin"]):
+        s, info = sample_mala(0, start, energy_fn=post, n_samples=fb["draws"],
+                              step_size=fb["step"], n_burnin=burnin, device=dev)
+        return (s, info), info["route"]
+
+    def mala_check(r):
+        s, info = r
+        e_end = float(torch.func.vmap(post)(s[:, -1]).mean())
+        if not (0.4 <= info["accept_rate"] <= 0.75 and bool(torch.isfinite(s).all())
+                and e_end < e_start):
+            raise AssertionError(f"MALA on the BNN posterior: {info}, energy {e_start} -> "
+                                 f"{e_end}")
+        return {"accept_rate": info["accept_rate"], "step_size": info["step_size"],
+                "energy_start": e_start, "energy_end": e_end}
+
+    out["mala_bnn"] = continuous_path(
+        f"sample_mala on the {post.dim}-parameter BNN posterior, {fb['chains']} chains",
+        mala, fb["burnin"] + fb["draws"], mala_check,
+        short=(lambda: mala(MALA_CHUNK + fb["burnin"] % MALA_CHUNK),
+               MALA_CHUNK + fb["burnin"] % MALA_CHUNK + fb["draws"]))
+
+    nb = NUTS_BNN
+
+    def nuts(burnin=nb["n_burnin"], samples=nb["n_samples"]):
+        s, info = sample_nuts(1, start, energy_fn=post, n_samples=samples,
+                              n_burnin=burnin, max_depth=nb["max_depth"],
+                              init_step_size=fb["step"], device=dev)
+        return (s, info), info["route"]
+
+    def mcmc_check(r):
+        s, info = r
+        if not bool(torch.isfinite(s).all()):
+            raise AssertionError(f"non-finite draws: {info}")
+        return {k: v for k, v in info.items() if k != "route"}
+
+    out["nuts_bnn"] = continuous_path(
+        f"sample_nuts on the BNN posterior, max_depth {nb['max_depth']}", nuts,
+        nb["n_burnin"] + nb["n_samples"], mcmc_check, short=(lambda: nuts(2, 2), 4))
+
+    def hmc_adaptive():
+        s, info = sample_hmc_adaptive(2, start, energy_fn=post, n_samples=nb["n_samples"],
+                                      n_burnin=nb["n_burnin"], device=dev)
+        return (s, info), info["route"]
+
+    out["hmc_adaptive_bnn"] = continuous_path(
+        "sample_hmc_adaptive on the BNN posterior, 16 leapfrog steps", hmc_adaptive,
+        nb["n_burnin"] + nb["n_samples"], mcmc_check)
+
+    P, d = SMC_SIZE
+    parts = 3.0 * torch.randn((P, d), generator=torch.Generator().manual_seed(31))
+
+    def smc():
+        r = annealed_smc(8, parts, energy_fn=Quadratic(0.0, 1.0), device=dev)
+        return r, r["route"]
+
+    def smc_check(r):
+        if abs(float(r["log_Z"]) + d * np.log(3.0)) >= 0.15:
+            raise AssertionError(f"annealed_smc log Z {float(r['log_Z'])}")
+        return {"log_Z": float(r["log_Z"])}
+
+    out["annealed_smc"] = continuous_path(f"annealed_smc {P} x {d}", smc, 50, smc_check)
+    mesh = make_mesh(chains=4, devices=[dev] * 4)
+
+    def sharded():
+        r = annealed_smc_sharded(mesh, 8, parts, energy_fn=Quadratic(0.0, 1.0))
+        return r, r["route"]
+
+    def sharded_check(r):
+        one = annealed_smc(8, parts, energy_fn=Quadratic(0.0, 1.0), device=dev)
+        if not (np.array_equal(r["particles"], one["particles"].cpu().numpy())
+                and np.array_equal(r["log_weights"], one["log_weights"].cpu().numpy())
+                and np.array_equal(r["ess_history"], one["ess_history"].cpu().numpy())
+                and r["log_Z"] == float(one["log_Z"])):
+            raise AssertionError("annealed_smc_sharded differs from annealed_smc")
+        return {"log_Z": r["log_Z"], "equal_to_unsharded": True}
+
+    out["annealed_smc_sharded"] = continuous_path(
+        f"annealed_smc_sharded {P} x {d} on make_mesh(chains=4, devices=[cuda:0] * 4)",
+        sharded, 50, sharded_check)
+
+    vb = VI_BNN
+
+    def vi(n_steps=vb["n_steps"]):
+        r = fit_meanfield_vi(9, post, post.dim, n_steps=n_steps, n_mc=vb["n_mc"],
+                             init_sigma=0.1, device=dev)
+        return r, r["route"]
+
+    def vi_check(r):
+        losses = r["losses"].cpu().numpy()
+        first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+        if not (np.all(np.isfinite(losses)) and last < first):
+            raise AssertionError(f"the ELBO did not improve: {first} -> {last}")
+        return {"neg_elbo_first50": first, "neg_elbo_last50": last}
+
+    out["vi_bnn"] = continuous_path(f"fit_meanfield_vi on the BNN posterior, n_mc {vb['n_mc']}",
+                                    vi, vb["n_steps"], vi_check, short=(lambda: vi(128), 128))
+
+    problem = ShiftedQuadratic(np.linspace(-1.0, 1.0, 10))
+
+    def fallback():
+        r = optimize(problem, seed=0, device=dev)
+        return r, r["route"]
+
+    def fallback_check(r):
+        if np.abs(r["best_solution"] - problem.target).max() >= 0.1:
+            raise AssertionError(f"optimize's fallback missed the minimum: {r}")
+        return {"best_objective": r["best_objective"]}
+
+    out["optimize_fallback"] = continuous_path(
+        "optimize(a torch objective in dim 10), annealed Langevin", fallback,
+        10 * (1000 // 10 + 1), fallback_check)
+    return out
+
+
+class ShiftedQuadratic(OptimizationProblem):
+    """A problem without ``to_ising``: |x - target|^2 in torch operations."""
+
+    def __init__(self, target):
+        self.target = np.asarray(target, np.float32)
+        self._on = {}
+
+    def objective(self, x):
+        if x.device not in self._on:
+            self._on[x.device] = torch.tensor(self.target, device=x.device)
+        return torch.sum((x - self._on[x.device]) ** 2)
+
+    @property
+    def dimension(self):
+        return len(self.target)
+
+
+def _turns(fn_e, fn_g, n):
+    """ms per step of ``fn(n)`` eager and graphed, in turns (eager, graph,
+    graph, eager), host clock, synchronised."""
+    times = {"eager": [], "graph": []}
+    for which, fn in (("eager", fn_e), ("graph", fn_g), ("graph", fn_g), ("eager", fn_e)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(n)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / n)
+    return times
+
+
+def phase_continuous_timing(dev, name):
+    """ms per step of each sampler's loop, graphed and eager, in turns, and
+    the host's launch calls per step of each."""
+    post = full_bayes_posterior()
+    start = bnn_start(post, FULL_BAYES["chains"]).to(dev)
+    chains, _ = QUICK
+    P, d = SMC_SIZE
+    parts = 3.0 * torch.randn((P, d), generator=torch.Generator().manual_seed(32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    draws = Draws(gen)
+    loops = {}
+    for g in (False, True):
+        run_langevin(draws, torch.zeros((chains, 1), device=dev), energy_fn=Quadratic(0.0, 1.0),
+                     n_samples=1, n_burnin=1, n_steps=1, graph=g)
+        run_mala(draws, start, energy_fn=post, n_samples=1, n_burnin=1, step_size=1e-3, graph=g)
+        run_hmc(draws, start, energy_fn=post, n_samples=1, n_burnin=1, step_size=1e-3, graph=g)
+        run_hmc_adaptive(draws, start, energy_fn=post, n_samples=1, n_burnin=1, graph=g)
+        run_nuts(draws, start, energy_fn=post, n_samples=1, n_burnin=1, max_depth=8,
+                 init_step_size=1e-3, graph=g)
+        run_smc(draws, [parts], energy_fn=Quadratic(0.0, 1.0), n_steps=50, graph=g)
+        run_vi(draws, post, post.dim, dev, n_steps=1, n_mc=16, graph=g)
+        key = "graph" if g else "eager"
+        loops[key] = {
+            "langevin (quick start, 16 x 1)": langevin_loop(Quadratic(0.0, 1.0), chains, 1, dev,
+                                                            graph=g),
+            "mala (BNN 16 x 1153)": mala_loops(post, 16, post.dim, dev, graph=g)["main"],
+            "hmc (BNN, 10 leapfrog)": hmc_loop(post, 16, post.dim, dev, graph=g),
+            "hmc_adaptive (BNN, 16 leapfrog)": hmc_adaptive_loops(post, 16, post.dim, dev,
+                                                                  graph=g)["main"],
+            "nuts (BNN, max_depth 8; a step is a transition)": nuts_loops(
+                post, 16, post.dim, dev, graph=g)["main"],
+            "annealed_smc (16384 x 10, 5 moves)": smc_loop(
+                Quadratic(0.0, 1.0), (dev,), P, d, n_steps=50, n_moves=5, ess_threshold=0.5,
+                graph=g),
+            "fit_meanfield_vi (BNN, n_mc 16)": vi_loop(post, post.dim, 16, dev, graph=g),
+        }
+    lengths = {"langevin (quick start, 16 x 1)": 100, "mala (BNN 16 x 1153)": 100,
+               "hmc (BNN, 10 leapfrog)": 20, "hmc_adaptive (BNN, 16 leapfrog)": 10,
+               "nuts (BNN, max_depth 8; a step is a transition)": 1,
+               "annealed_smc (16384 x 10, 5 moves)": 10, "fit_meanfield_vi (BNN, n_mc 16)": 50}
+    out = {}
+    for what, L in lengths.items():
+        le, lg = loops["eager"][what], loops["graph"][what]
+        if (le.route, lg.route) != ("eager", "graph"):
+            raise AssertionError(f"{what}: routes {le.route}, {lg.route}")
+        def run(lp, n):
+            if "betas" in lp.state:         # SMC: stay on its 50-step ladder
+                lp.state["t"].zero_()
+            lp.run(draws, n)
+
+        run(lg, L)                          # the graph of this length is captured here
+        t = _turns(lambda n: run(le, n), lambda n: run(lg, n), L)
+        launches = {k: host_launches(lambda lp=lp: run(lp, L)) / L
+                    for k, lp in (("eager", le), ("graph", lg))}
+        out[what] = {"eager_ms_per_step": t["eager"], "graph_ms_per_step": t["graph"],
+                     "eager_host_launches_per_step": launches["eager"],
+                     "graph_host_launches_per_step": launches["graph"], "steps_per_call": L}
+        log(f"{what} ({name}): eager {t['eager'][0]:.4f}, {t['eager'][1]:.4f} ms a step, "
+            f"{launches['eager']:.1f} host launch calls a step; graphed {t['graph'][0]:.4f}, "
+            f"{t['graph'][1]:.4f} ms a step, {launches['graph']:.3f} host launch calls a step "
+            f"({L} steps a call; eager, graph, graph, eager)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2079,6 +2616,25 @@ def main() -> int:
     log(f"phases 24-28 added {slice4_s:.1f} s")
     log("slice 4: " + json.dumps({"graph_check": graph_check, "dense": dense, "sparse": sparse,
                                   "seconds": slice4_s, "card": name}))
+
+    t_slice5 = time.perf_counter()
+    exact = phase_continuous_exact(dev)
+    log("phase 29: every continuous step loop's graph == its eager loop bit for bit, and the "
+        "card == the CPU on the same draws")
+
+    stat_routes = phase_continuous_statistics(dev)
+    log("phase 30: continuous statistics on the card agree with the exact answers")
+
+    paths5 = phase_continuous_paths(dev)
+    log("phase 31: the continuous paths ran at their users' sizes, every one on its graphs")
+
+    timing5 = phase_continuous_timing(dev, name)
+    log("phase 32: timed")
+    slice5_s = time.perf_counter() - t_slice5
+    log(f"phases 29-32 added {slice5_s:.1f} s")
+    log("slice 5: " + json.dumps({"exact_max_abs_diff": exact, "statistics_routes": stat_routes,
+                                  "paths": paths5, "ms_per_step": timing5,
+                                  "seconds": slice5_s, "card": name}))
 
     R, C2 = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2
     site = R * C2                                     # compact sites of one 4096^2 plane

@@ -1010,3 +1010,126 @@ def test_dense_model_and_max_cut_on_the_card(cuda):
     s = m.sample(8)
     assert s.shape == (8, 300) and set(np.unique(s)) <= {-1.0, 1.0}
     assert m._plan_of is not None and m._plan_of[2].J.is_cuda
+
+
+# -- slice 5: the continuous samplers' step loops on the card ---------------
+
+def _continuous_runs():
+    """name -> run(draws, x0, graph) -> (tensor, route), at 4 chains x dim 4."""
+    from tsu_tpu_torch.energy import MixtureOfGaussians
+    from tsu_tpu_torch.samplers.hmc import run_hmc, run_hmc_adaptive
+    from tsu_tpu_torch.samplers.langevin import run_langevin
+    from tsu_tpu_torch.samplers.mala import run_mala
+    from tsu_tpu_torch.samplers.nuts import run_nuts
+    from tsu_tpu_torch.samplers.smc import run_smc
+    from tsu_tpu_torch.samplers.vi import run_vi
+
+    mix = MixtureOfGaussians(((-1.0, 0.0, 0.5, 0.0), (1.0, 0.5, 0.0, -0.5)), (0.8, 1.1))
+    return {
+        "langevin": lambda d, x, g: run_langevin(d, x, energy_fn=mix, n_samples=5, n_burnin=10,
+                                                 n_steps=3, dt=0.05, graph=g),
+        "langevin_em": lambda d, x, g: run_langevin(d, x, energy_fn=mix, n_samples=5,
+                                                    n_burnin=10, n_steps=3, dt=0.01,
+                                                    underdamped=False, graph=g),
+        "mala": lambda d, x, g: (lambda r: (r[0], r[1]["route"]))(run_mala(
+            d, x, energy_fn=mix, n_samples=10, n_burnin=10, graph=g)),
+        "hmc": lambda d, x, g: (lambda r: (r[0], r[2]))(run_hmc(
+            d, x, energy_fn=mix, n_samples=5, n_burnin=5, n_leapfrog=4, graph=g)),
+        "hmc_adaptive": lambda d, x, g: (lambda r: (r[0], r[1]["route"]))(run_hmc_adaptive(
+            d, x, energy_fn=mix, n_samples=8, n_burnin=3, n_leapfrog=6, graph=g)),
+        "nuts": lambda d, x, g: (lambda r: (r[0], r[1]["route"]))(run_nuts(
+            d, x, energy_fn=mix, n_samples=3, n_burnin=2, max_depth=4, graph=g)),
+        "smc": lambda d, x, g: (lambda r: (r["particles"][0], r["route"]))(run_smc(
+            d, [3.0 * x.repeat(8, 1)], energy_fn=mix, n_steps=8, n_moves=2, ess_threshold=0.7,
+            graph=g)),
+        "vi": lambda d, x, g: (lambda r: (torch.cat([r[0].mu, r[0].rho]), r[2]))(run_vi(
+            d, mix, 4, x.device, n_steps=20, n_mc=4, graph=g)),
+    }
+
+
+@pytest.mark.parametrize("name", ["langevin", "langevin_em", "mala", "hmc", "hmc_adaptive",
+                                  "nuts", "smc", "vi"])
+def test_continuous_loop_graph_equals_eager_and_cpu(cuda, name):
+    """On one set of draws: the CUDA graph replay equals the eager loop bit
+    for bit, and the card equals the CPU within 1e-4."""
+    from tsu_tpu_torch.samplers.loop import Draws
+
+    run = _continuous_runs()[name]
+    x0 = torch.randn((4, 4), generator=torch.Generator().manual_seed(3))
+    # Record the draws of a CPU run, then hand them to the card's runs.
+    log = {}
+
+    class Recording(Draws):
+        def fill(self, key, kind, out, *bounds):
+            super().fill(key, kind, out, *bounds)
+            log.setdefault(key, []).append(out.clone())
+
+    ref, _ = run(Recording(torch.Generator().manual_seed(4)), x0, True)
+    given = {k: torch.cat(v) for k, v in log.items()}
+    eager, route_e = run(Draws(given=given), x0.to(cuda), False)
+    graph, route_g = run(Draws(given=given), x0.to(cuda), True)
+    assert (route_e, route_g) == ("eager", "graph")
+    assert torch.equal(graph, eager)
+    np.testing.assert_allclose(eager.cpu().numpy(), ref.numpy(), atol=1e-4)
+
+
+def test_uncapturable_energies_run_eagerly_with_one_warning(cuda):
+    import warnings
+
+    from tsu_tpu_torch import Quadratic, sample_langevin
+
+    def copies_in(x):        # a host-to-card copy: not capturable
+        return torch.sum(x**2 * torch.tensor([1.0, 2.0], device=x.device)) / 2.0
+
+    def reads_a_value(x):    # .item(): vmap cannot batch it
+        if float(x.abs().max()) > 1e6:
+            raise ValueError("diverged")
+        return torch.sum(x**2) / 2.0
+
+    for energy, words in ((copies_in, "could not be captured"), (reads_a_value, "chain by chain")):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            s = sample_langevin(0, np.zeros((4, 2)), energy_fn=energy, n_samples=5, n_burnin=5,
+                                device=cuda)
+        assert sample_langevin.last_route == "eager"
+        assert sum(words in str(w.message) for w in caught) == 1
+        assert bool(torch.isfinite(s).all())
+    sample_langevin(0, np.zeros((4, 2)), energy_fn=Quadratic(), n_samples=5, n_burnin=5,
+                    device=cuda)
+    assert sample_langevin.last_route == "graph"
+
+
+def test_continuous_api_on_the_card(cuda):
+    from tsu_tpu_torch import (
+        GaussianSampler,
+        OptimizationProblem,
+        Quadratic,
+        TSUConfig,
+        annealed_smc,
+        annealed_smc_sharded,
+        make_mesh,
+        optimize,
+    )
+
+    res = GaussianSampler(1.0, 0.5, seed=0, config=TSUConfig(n_chains=64, n_burnin=100,
+                                                             n_steps=100, dt=0.1)).sample(2000)
+    assert res.metadata["route"] == "graph" and abs(res.samples.mean() - 1.0) < 0.15
+
+    class Shifted(OptimizationProblem):
+        def objective(self, x):
+            return torch.sum((x - 1.5) ** 2)
+
+        @property
+        def dimension(self):
+            return 3
+
+    out = optimize(Shifted(), seed=0, device=cuda)
+    assert out["route"] == "graph"
+    np.testing.assert_allclose(out["best_solution"], 1.5, atol=0.1)
+    parts = 3.0 * torch.randn((512, 3), generator=torch.Generator().manual_seed(5))
+    one = annealed_smc(2, parts, energy_fn=Quadratic(), n_steps=10, device=cuda)
+    four = annealed_smc_sharded(make_mesh(chains=4, devices=[cuda] * 4), 2, parts,
+                                energy_fn=Quadratic(), n_steps=10)
+    assert one["route"] == four["route"] == "graph"
+    np.testing.assert_array_equal(four["particles"], one["particles"].cpu().numpy())
+    assert four["log_Z"] == float(one["log_Z"])

@@ -169,6 +169,8 @@ def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
         "mesh = tsu_tpu_torch.make_mesh(rows=2, cols=2, devices=['cpu'] * 4)\n"
         "tsu_tpu_torch.IsingGrid((8, 8), seed=0, device='cpu').sample_observables(\n"
         "    n_samples=2, mesh=mesh)\n"
+        "tsu_tpu_torch.sample_langevin(0, [[0.0]], energy_fn=tsu_tpu_torch.Quadratic(),\n"
+        "                              n_samples=2, n_burnin=2, device='cpu')\n"
         "print(json.dumps({'jax': 'jax' in sys.modules,\n"
         "                  'triton': 'triton' in sys.modules,\n"
         "                  'built': _build.fused_sweep_library.cache_info().currsize\n"
@@ -201,7 +203,7 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 class _Quadratic(tsu_tpu_torch.OptimizationProblem):
-    """A problem without ``to_ising``: it needs annealed Langevin."""
+    """A problem without ``to_ising`` whose objective is numpy only."""
 
     def objective(self, x):
         return float(np.sum(np.asarray(x) ** 2))
@@ -211,13 +213,38 @@ class _Quadratic(tsu_tpu_torch.OptimizationProblem):
         return 2
 
 
+class _TorchQuadratic(tsu_tpu_torch.OptimizationProblem):
+    """A problem without ``to_ising`` written with torch operations:
+    minimum 0 at (1, -2)."""
+
+    def objective(self, x):
+        return torch.sum((x - torch.tensor([1.0, -2.0], device=x.device)) ** 2)
+
+    @property
+    def dimension(self):
+        return 2
+
+
 @pytest.mark.parametrize("call", [
     lambda: tsu_tpu_torch.IsingChain(4, device="cpu").visualize(np.ones(4)),
-    lambda: tsu_tpu_torch.optimize(_Quadratic(), seed=0, device="cpu"),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="slice"):
         call()
+
+
+def test_optimize_rejects_an_objective_it_cannot_differentiate():
+    """As the reference does for an untraceable objective: the annealed
+    Langevin fallback needs torch.func.grad of the objective."""
+    with pytest.raises(ConfigurationError, match="cannot be differentiated"):
+        tsu_tpu_torch.optimize(_Quadratic(), seed=0, device="cpu")
+
+
+def test_optimize_anneals_a_torch_objective_to_its_minimum():
+    res = tsu_tpu_torch.optimize(_TorchQuadratic(), n_steps=300, seed=0, device="cpu")
+    np.testing.assert_allclose(res["best_solution"], [1.0, -2.0], atol=0.1)
+    assert res["best_objective"] < 0.02
+    assert res["n_steps"] == 300
 
 
 def _sample_dense_5x4():

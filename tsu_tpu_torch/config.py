@@ -1,8 +1,8 @@
-"""Exception hierarchy, the validated, immutable Gibbs and Ising
+"""Exception hierarchy, the validated, immutable Langevin, Gibbs and Ising
 configurations and the device an entry point runs on.
 
-The errors, ``GibbsConfig`` and ``IsingConfig`` are copied from
-``tsu_tpu/config.py``:
+The errors, ``TSUConfig``, ``GibbsConfig`` and ``IsingConfig`` are copied
+from ``tsu_tpu/config.py``:
 importing that module runs ``tsu_tpu/__init__.py``, which imports JAX, so the
 PyTorch port keeps its own copy.
 """
@@ -30,6 +30,45 @@ class SamplingError(TSUError):
 def _require(cond: bool, msg: str):
     if not cond:
         raise ConfigurationError(msg)
+
+
+@dataclass(frozen=True)
+class TSUConfig:
+    """Configuration for the Langevin sampling engine.
+
+    Attributes:
+        temperature: sampling temperature T > 0.
+        dt: integrator step size, 0 < dt <= 0.1.
+        friction: Langevin friction coefficient gamma > 0.
+        n_burnin: burn-in steps discarded before the first sample.
+        n_steps: integration steps between retained samples.
+        n_chains: independent chains run in parallel.
+        underdamped: use the underdamped (BAOAB) integrator; if False,
+            overdamped Euler-Maruyama.
+        mass: particle mass for the underdamped integrator.
+    """
+
+    temperature: float = 1.0
+    dt: float = 0.01
+    friction: float = 1.0
+    n_burnin: int = 100
+    n_steps: int = 1000
+    n_chains: int = 1
+    underdamped: bool = True
+    mass: float = 1.0
+
+    def __post_init__(self):
+        _require(self.temperature > 0, f"temperature must be positive, got {self.temperature}")
+        _require(0 < self.dt <= 0.1, f"dt must be in (0, 0.1], got {self.dt}")
+        _require(self.friction > 0, f"friction must be positive, got {self.friction}")
+        _require(self.n_burnin >= 0, f"n_burnin must be non-negative, got {self.n_burnin}")
+        _require(self.n_steps > 0, f"n_steps must be positive, got {self.n_steps}")
+        _require(self.n_chains > 0, f"n_chains must be positive, got {self.n_chains}")
+        _require(self.mass > 0, f"mass must be positive, got {self.mass}")
+
+    def replace(self, **kwargs) -> "TSUConfig":
+        """Return a copy with fields replaced (configs are immutable)."""
+        return dataclasses.replace(self, **kwargs)
 
 
 @dataclass(frozen=True)

@@ -2,9 +2,11 @@
 
 ``tsu_tpu`` keeps a lattice as a numpy-convertible (R, C) array or as a pair
 of compact (R, C/2) planes, its bond state as per-colour weight or code
-planes, a dense model as numpy (J, h), a sparse graph as ELL arrays, and its
-``IsingConfig`` as a frozen dataclass. These helpers turn each into the
-port's tensors, models and config without importing ``tsu_tpu``: callers
+planes, a dense model as numpy (J, h), a sparse graph as ELL arrays, its
+``IsingConfig`` and ``TSUConfig`` as frozen dataclasses, a continuous state
+as a flat vector or a (n_chains, dim) array, a BNN posterior as its data and
+fields, and a mean-field fit as (mu, rho). These helpers turn each into the
+port's tensors, models and configs without importing ``tsu_tpu``: callers
 hand over numpy arrays and plain fields.
 """
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch.config import ConfigurationError, IsingConfig
-from tsu_tpu_torch.energy import DenseBoltzmann
+from tsu_tpu_torch.energy import BNNPosterior, DenseBoltzmann
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 
 
@@ -38,16 +40,40 @@ def lattice_to_planes(lattice, *, device=None, dtype=torch.float32):
         torch.tensor(np.asarray(lattice), dtype=dtype, device=device))
 
 
-def config_from_fields(fields) -> IsingConfig:
-    """An IsingConfig from the fields of the JAX package's IsingConfig: the
-    object itself (any object with those attributes) or a mapping."""
-    names = [f.name for f in dataclasses.fields(IsingConfig)]
+def config_from_fields(fields, cls=IsingConfig):
+    """A config of class ``cls`` (``IsingConfig`` or ``TSUConfig``) from the
+    fields of the JAX package's config of that name: the object itself (any
+    object with those attributes) or a mapping."""
+    names = [f.name for f in dataclasses.fields(cls)]
     if isinstance(fields, Mapping):
         unknown = set(fields) - set(names)
         if unknown:
-            raise ConfigurationError(f"unknown IsingConfig fields: {sorted(unknown)}")
-        return IsingConfig(**fields)
-    return IsingConfig(**{n: getattr(fields, n) for n in names})
+            raise ConfigurationError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
+        return cls(**fields)
+    return cls(**{n: getattr(fields, n) for n in names})
+
+
+def states_from_numpy(x, *, device=None) -> torch.Tensor:
+    """A continuous state, a flat (dim,) vector (a BNN's theta) or a
+    (n_chains, dim) start, as a float32 tensor of the same shape."""
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def bnn_posterior_from_numpy(x, y, sizes, activation: str = "relu", prior_std: float = 1.0,
+                             noise_std: float = 0.1, *, device=None) -> BNNPosterior:
+    """The JAX package's ``BNNPosterior`` from its data (x (N, d_in), y (N,
+    d_out)) and fields; the data become float32 tensors on ``device``."""
+    return BNNPosterior(states_from_numpy(x, device=device), states_from_numpy(y, device=device),
+                        tuple(int(s) for s in sizes), activation, float(prior_std),
+                        float(noise_std))
+
+
+def meanfield_from_numpy(mu, rho, *, device=None):
+    """The JAX package's ``MeanFieldParams`` (mu, rho) as the port's."""
+    from tsu_tpu_torch.samplers.vi import MeanFieldParams
+
+    return MeanFieldParams(states_from_numpy(mu, device=device),
+                           states_from_numpy(rho, device=device))
 
 
 def _tensor(a, device):

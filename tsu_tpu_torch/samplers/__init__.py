@@ -1,6 +1,8 @@
 """Samplers of the port (counterparts of ``tsu_tpu/samplers/``): dense Gibbs
-sampling on colour sweeps, and annealing, parallel tempering and the
-spin-glass ladder tools, dense and on the batched sweep kernels."""
+sampling on colour sweeps; annealing, parallel tempering and the spin-glass
+ladder tools, dense and on the batched sweep kernels; and the continuous
+samplers (Langevin, MALA, HMC, NUTS, annealed SMC, mean-field VI), whose
+step loops replay as CUDA graphs on the card (``loop.py``)."""
 
 from tsu_tpu_torch.samplers.annealing import (
     anneal_lattice,
@@ -18,6 +20,11 @@ from tsu_tpu_torch.samplers.gibbs import (
     dense_gibbs_sample,
     gibbs_sweeps,
 )
+from tsu_tpu_torch.samplers.hmc import sample_hmc, sample_hmc_adaptive
+from tsu_tpu_torch.samplers.langevin import make_langevin_step, sample_langevin
+from tsu_tpu_torch.samplers.mala import sample_mala
+from tsu_tpu_torch.samplers.nuts import sample_nuts
+from tsu_tpu_torch.samplers.smc import annealed_smc, systematic_resample_indices
 from tsu_tpu_torch.samplers.tempering import (
     parallel_tempering_bonds,
     parallel_tempering_dense,
@@ -29,9 +36,20 @@ from tsu_tpu_torch.samplers.tempering_ladder import (
     predict_swap_acceptance,
     pt_ground_state_search,
 )
+from tsu_tpu_torch.samplers.vi import MeanFieldParams, fit_meanfield_vi
 
 __all__ = [
     "GibbsSampler",
+    "MeanFieldParams",
+    "annealed_smc",
+    "fit_meanfield_vi",
+    "make_langevin_step",
+    "sample_hmc",
+    "sample_hmc_adaptive",
+    "sample_langevin",
+    "sample_mala",
+    "sample_nuts",
+    "systematic_resample_indices",
     "anneal_lattice",
     "anneal_spin_glass",
     "blocked_sweeps",

@@ -6,9 +6,10 @@ Run from the repository root on a machine with a card:
     python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR] [--only NAME ...]
 
 Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13, 17,
-22, 26 and 27), once to warm up and once under the profiler; the dense
-sample reuses its model, so the profiled call replays the colour sweep's
-CUDA graph captured by the warm-up. For each path it prints
+22, 26, 27 and 31), once to warm up and once under the profiler; the dense
+sample reuses its model, and the continuous samplers their cached step
+loops, so the profiled call replays the CUDA graphs captured by the
+warm-up. For each path it prints
 the wall time, the device busy time and idle share, the count and device
 time of the port's kernels, the host's launch calls (kernels, and CUDA
 graphs, one call each) and their host time,
@@ -20,8 +21,10 @@ the card finishes at once: a batched sweep (``fused_sweeps_keyed``), one
 ``fused_sweep`` wrapper call, and one sweep of ``fused_sweeps``, which sets up
 its launches once per call. ``--out DIR`` writes the profiler's tables to
 DIR/profile_paths.txt; ``--only`` profiles the paths named (for instance
-``"sharded sample 2 x 2"``) and nothing else. The last line is one JSON
-object with every number printed.
+``"sharded sample 2 x 2"``) and nothing else. With the continuous quick
+start it also times that path without the profiler, replayed from its
+graphs and eager. The last line is one JSON object with every number
+printed.
 """
 
 from __future__ import annotations
@@ -35,7 +38,17 @@ import time
 import numpy as np
 import torch
 
-from tsu_tpu_torch import IsingConfig, IsingGrid, IsingModel, demonstrate_phase_transition
+from tsu_tpu_torch import (
+    BNNPosterior,
+    Quadratic,
+    IsingConfig,
+    IsingGrid,
+    IsingModel,
+    ThermalSamplingUnit,
+    TSUConfig,
+    demonstrate_phase_transition,
+    sample_mala,
+)
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
 from tsu_tpu_torch.ops.sparse_ising import maxcut_sparse
@@ -47,6 +60,8 @@ from tsu_tpu_torch.ops.checkerboard_fused import (
 )
 from tsu_tpu_torch.parallel import make_mesh, parallel_tempering_replica_sharded
 from tsu_tpu_torch.rng import sweep_keys
+from tsu_tpu_torch.samplers.langevin import run_langevin
+from tsu_tpu_torch.samplers.loop import Draws
 from tsu_tpu_torch.tools.bench import ea_codes
 from tsu_tpu_torch.tools.timing import LAUNCH_CALLS, card
 from tsu_tpu_torch.samplers import (
@@ -61,6 +76,12 @@ SCAN = (16, 1024)          # the phase scan: 16 temperatures x 1024^2
 PT = (64, 256, 256)        # tempering: 64 rungs x 256^2
 DENSE = (4096, 8, 64)      # the dense sample: 4,096-spin SK, 8 chains, 64 samples
 SPARSE = (100_000, 500_000, 2000)   # maxcut_sparse at the suite's size: nodes, edges, steps
+QUICK = (16, 10_000)       # README.md's continuous quick start: chains, samples
+# The full-Bayes row of tsu_tpu/benchmarks/ml.py:163-178: a (1, 32, 32, 1)
+# BNN posterior over 100 points, MALA with 16 chains, step 1e-3, 3,000
+# burn-in and 32 draws a chain.
+FULL_BAYES = {"sizes": (1, 32, 32, 1), "n_train": 100, "chains": 16, "step": 1e-3,
+              "burnin": 3000, "draws": 32}
 TOP = 8                    # device operations listed per path
 KERNEL_NAMES = ("fused_sweep", "bond_halfsweep", "halfsweep_kernel")
 
@@ -93,6 +114,21 @@ def suite_graph(n_nodes: int, n_edges: int, seed: int = 3):
     return edges, np.ones(len(edges))
 
 
+def full_bayes_posterior(seed: int = 0) -> BNNPosterior:
+    """The full-Bayes row's posterior: x ~ U(-1, 1), y = sin(3x) + 0.1 N(0, 1)
+    from ``np.random.default_rng(seed)``, as the row draws them, and a
+    (1, 32, 32, 1) MLP (1,153 parameters) at prior 1 and noise 0.1."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (FULL_BAYES["n_train"], 1)).astype(np.float32)
+    y = (np.sin(3 * x) + 0.1 * rng.normal(size=x.shape)).astype(np.float32)
+    return BNNPosterior(x, y, FULL_BAYES["sizes"])
+
+
+def bnn_start(post: BNNPosterior, chains: int, seed: int = 0) -> torch.Tensor:
+    """(chains, dim) starts theta ~ 0.1 N(0, 1) from ``seed``."""
+    return 0.1 * torch.randn((chains, post.dim), generator=torch.Generator().manual_seed(seed))
+
+
 def _dense_model(dev) -> IsingModel:
     n, chains, _ = DENSE
     model = IsingModel(n, config=IsingConfig(n_chains=chains), seed=0, device=dev)
@@ -110,6 +146,7 @@ def paths(dev) -> dict:
     codes = ea_codes(GRID[0], dev)
     dense = _dense_model(dev)
     edges, weights = suite_graph(*SPARSE[:2])
+    post = full_bayes_posterior()
     return {
         "sample": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev).sample(
             n_samples=4, temperature=2.269),
@@ -149,15 +186,31 @@ def paths(dev) -> dict:
         "dense sample 4096": lambda: dense.sample(DENSE[2]),
         "maxcut sparse 100k": lambda: maxcut_sparse(0, SPARSE[0], edges, weights,
                                                     n_steps=SPARSE[2], device=dev),
+        # Slice 5 (phase 31): the README's continuous quick start (62,600
+        # BAOAB steps of 16 chains) and MALA on the full-Bayes row's
+        # 1,153-parameter BNN posterior (16 chains, 3,000 burn-in, 32 draws).
+        "continuous quick start": lambda: ThermalSamplingUnit(
+            TSUConfig(n_chains=QUICK[0]), seed=0, device=dev).sample_gaussian(0.0, 1.0, QUICK[1]),
+        "mala bnn 1153": lambda: sample_mala(
+            0, bnn_start(post, FULL_BAYES["chains"]), energy_fn=post, n_samples=FULL_BAYES["draws"],
+            step_size=FULL_BAYES["step"], n_burnin=FULL_BAYES["burnin"], device=dev),
     }
 
 
 def profile_path(fn, tables: list) -> dict:
+    """One warm-up call of ``fn``, then :func:`profile_once`."""
+    fn()
+    torch.cuda.synchronize()
+    return profile_once(fn, tables)
+
+
+def profile_once(fn, tables: list) -> dict:
+    """One call of ``fn`` under the profiler: wall, device busy and idle,
+    the port's kernels, host launch calls and the top device operations;
+    the profiler's table is appended to ``tables``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -180,6 +233,29 @@ def profile_path(fn, tables: list) -> dict:
         "top_device_ops": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                            for e in device[:TOP]],
     }
+
+
+def quick_start_walls(dev) -> dict:
+    """Host-clock seconds of the README's continuous quick start replayed
+    from its cached graphs, and of the same Langevin run eager (the unit's
+    call of ``run_langevin`` with ``graph=False``: 16 chains, 100 burn-in
+    steps, 625 samples 100 steps apart, curvature 1 at the start)."""
+    chains, n = QUICK
+    out = {}
+    for route in ("graph", "eager"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "graph":
+            ThermalSamplingUnit(TSUConfig(n_chains=chains), seed=0, device=dev).sample_gaussian(
+                0.0, 1.0, n)
+        else:
+            run_langevin(Draws(gen), 0.1 * torch.randn((chains, 1), generator=gen, device=dev),
+                         energy_fn=Quadratic(0.0, 1.0), n_samples=-(-n // chains), dt=0.01,
+                         n_burnin=100, n_steps=100, graph=False)
+        torch.cuda.synchronize()
+        out[route] = time.perf_counter() - t0
+    return out
 
 
 def _host_us(run, n: int) -> float:
@@ -233,6 +309,10 @@ def main(argv=None) -> int:
               f"{r['host_launch_ms']:.1f} ms in them", flush=True)
         for key, count, ms in r["top_device_ops"]:
             print(f"    {ms:9.3f} ms  {count:6d}  {key}")
+    if "continuous quick start" in result["paths"]:
+        w = result["quick_start_walls_s"] = quick_start_walls(dev)
+        print(f"continuous quick start without the profiler: graphed {w['graph']:.3f} s, eager "
+              f"{w['eager']:.3f} s", flush=True)
     result["host_launch_us"] = host_launch_us(dev)
     h = result["host_launch_us"]
     print(f"host path of one launch: batched {h['batched']:.2f} us, fused_sweep "
