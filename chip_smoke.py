@@ -171,9 +171,36 @@ Phases, each of which raises on failure:
     posterior (the ELBO improves) and optimize's annealed-Langevin fallback
     on a torch objective in dim 10;
 32. ms per step of each sampler's loop, eager and graphed in turns, and
-    the host's launch calls per step of each.
+    the host's launch calls per step of each;
+33. the BNN loops on one set of draws: forward_sample and elbo_loss on the
+    card == on the CPU within 1e-5, 20 full-batch ELBO steps of a
+    (1, 32, 32, 1) net on 100 points with n_mc 3, 50 steps of an anchored
+    ensemble of 8 (1, 32, 32, 1) members on 80 points and the predictive
+    (200 draws on 200 points): the card == the CPU (losses within 1e-5
+    relative, the ensemble's 1e-4, parameters within 1e-4; the ensemble
+    with tanh units, and with relu units over 20 steps, the 50 relu steps'
+    difference logged), the graph replay == the eager loop on the card bit
+    for bit, every graphed loop's route "graph";
+34. the ML suite at full size, MLBenchmark(seed=0).run_all_benchmarks()
+    (sinusoid and heteroscedastic 800 epochs, extrapolation 8 members x
+    2,000 epochs, full Bayes 800 VI epochs then MALA with 16 chains, 3,000
+    burn-in and 512 draws), each row in its band (coverage_95 in [0.85,
+    1], sinusoid and full-Bayes r^2 > 0.9, extrapolation uncertainty ratio
+    > 5 and coverage in [0.88, 1]) and every row's route "graph"; and
+    measure_bnn_dp_scaling at its defaults on make_mesh's [cuda:0] * 4,
+    whose 4 x 16,384-point split run must equal the same points on one
+    device within 1e-4 relative;
+35. BenchmarkRunner(seed=0).run_all(quick=True) end to end into a temporary
+    directory: every row of the four suites, each row's route, K5's
+    launches in spin_glass_ea and the quick-mode wall; then
+    measure_lattice_matched at 4096^2 x 2,500 sweeps (10,000 K1 launches
+    in shard mode);
+36. ms per step of the BNN fit step, the ensemble step and a 200-draw
+    predictive on 200 points, eager and graphed in turns, and the host's
+    launch calls per step of each.
 
-A "slice 4:" and a "slice 5:" JSON log line carry those phases' numbers.
+A "slice 4:", a "slice 5:" and a "slice 6:" JSON log line carry those
+phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
@@ -222,7 +249,14 @@ from tsu_tpu_torch import (
     sample_nuts,
     validate_distribution,
 )
-from tsu_tpu_torch import native
+from tsu_tpu_torch import AnchoredEnsembleRegressor, BayesianRegressor, native
+from tsu_tpu_torch.benchmarks import BenchmarkRunner, MLBenchmark
+from tsu_tpu_torch.benchmarks.scaling import (
+    bnn_dp_row,
+    measure_bnn_dp_scaling,
+    measure_lattice_matched,
+)
+from tsu_tpu_torch.models import ml
 from tsu_tpu_torch.ops import sparse_ising
 from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble
 from tsu_tpu_torch.ops import _build
@@ -2471,16 +2505,24 @@ def phase_continuous_timing(dev, name):
                "hmc (BNN, 10 leapfrog)": 20, "hmc_adaptive (BNN, 16 leapfrog)": 10,
                "nuts (BNN, max_depth 8; a step is a transition)": 1,
                "annealed_smc (16384 x 10, 5 moves)": 10, "fit_meanfield_vi (BNN, n_mc 16)": 50}
+
+    def run(lp, n):
+        if "betas" in lp.state:             # SMC: stay on its 50-step ladder
+            lp.state["t"].zero_()
+        lp.run(draws, n)
+
+    return _loop_timings(loops, lengths, run, name)
+
+
+def _loop_timings(loops, lengths, run, name) -> dict:
+    """ms per step of each loop eager and graphed, in turns, and the host's
+    launch calls per step of each: ``loops[route][what]`` the loops,
+    ``lengths[what]`` steps a call, ``run(loop, n)`` one call."""
     out = {}
     for what, L in lengths.items():
         le, lg = loops["eager"][what], loops["graph"][what]
         if (le.route, lg.route) != ("eager", "graph"):
             raise AssertionError(f"{what}: routes {le.route}, {lg.route}")
-        def run(lp, n):
-            if "betas" in lp.state:         # SMC: stay on its 50-step ladder
-                lp.state["t"].zero_()
-            lp.run(draws, n)
-
         run(lg, L)                          # the graph of this length is captured here
         t = _turns(lambda n: run(le, n), lambda n: run(lg, n), L)
         launches = {k: host_launches(lambda lp=lp: run(lp, L)) / L
@@ -2493,6 +2535,263 @@ def phase_continuous_timing(dev, name):
             f"{t['graph'][1]:.4f} ms a step, {launches['graph']:.3f} host launch calls a step "
             f"({L} steps a call; eager, graph, graph, eager)")
     return out
+
+
+# -- slice 6: BNNs and the benchmark suites ------------------------------------
+
+BNN_FIT = dict(sizes=(1, 32, 32, 1), n_points=100, n_mc=3, steps=20)   # the sinusoid row's net
+BNN_ENSEMBLE = dict(members=8, sizes=(1, 32, 32, 1), n_points=80, steps=50)
+PREDICT = dict(n_samples=200, n_points=200)           # the ML rows' predictive
+DP_POINTS = 16_384                                    # measure_bnn_dp_scaling's points per device
+LATTICE_MATCHED = dict(size=4096, n_sweeps=2500, n_iters=3)
+RUNNER_ROWS = {
+    "sampling": ["uniform_binary", "boltzmann_chain", "ferromagnet_bimodal"],
+    "optimization": ["maxcut", "graph_coloring", "number_partitioning", "maxcut_sparse",
+                     "spin_glass_ea"],
+    "ml": ["sinusoid", "heteroscedastic", "extrapolation", "sinusoid_mcmc_quick"],
+    "comparison": ["sampling", "sampling", "sampling", "optimization", "optimization",
+                   "optimization", "multi_trial"],
+}
+
+
+def _sinusoid(seed: int, n: int):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    y = (np.sin(3 * x) + 0.1 * rng.normal(size=x.shape)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def _on(tree, dev):
+    """A nest of lists and dicts of tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_on(v, dev) for v in tree]
+    return tree.detach().to(dev).clone()
+
+
+def _bnn_trainable(cpu):
+    net = BayesianRegressor(1, list(BNN_FIT["sizes"][1:-1]), seed=0, device=cpu)
+    return _on({"layers": net.params, "log_noise": net.log_noise}, cpu)
+
+
+def _ensemble_state(cpu):
+    e = BNN_ENSEMBLE
+    reg = AnchoredEnsembleRegressor(1, list(e["sizes"][1:-1]), n_members=e["members"], seed=0,
+                                    device=cpu)
+    return reg.trainable, reg.anchors
+
+
+def _compare(what, card, cpu, rtol, atol, gate=True) -> float:
+    """Raise (if ``gate``) unless every card tensor is within rtol/atol of
+    its CPU one; returns the largest absolute difference."""
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        a = a.cpu()
+        if gate and not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: the card differs from the CPU by "
+                                 f"{float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def _three_ways(what, run, cpu, dev, rtol, atol, gate=True) -> float:
+    """``run(device, graph) -> (tensors, route)`` on the CPU, eagerly on the
+    card and from the card's graphs: graph == eager bit for bit, the card ==
+    the CPU within rtol/atol (when ``gate``); returns the card - CPU max
+    |diff|."""
+    ref, route_c = run(cpu, False)
+    eager, route_e = run(dev, False)
+    graph, route_g = run(dev, True)
+    if (route_c, route_e, route_g) != ("eager", "eager", "graph"):
+        raise AssertionError(f"{what}: routes {route_c}, {route_e}, {route_g}")
+    if not all(torch.equal(a, b) for a, b in zip(graph, eager)):
+        raise AssertionError(f"{what}: the graph replay differs from the eager loop")
+    err = _compare(what, eager, ref, rtol, atol, gate)
+    log(f"{what}: graph == eager bit for bit; card - CPU max |diff| {err:.3g}")
+    return err
+
+
+def phase_bnn_exact(dev):
+    cpu = torch.device("cpu")
+    f, e, pr = BNN_FIT, BNN_ENSEMBLE, PREDICT
+    gen = torch.Generator().manual_seed(33)
+    x, y = _sinusoid(33, f["n_points"])
+    trainable = _bnn_trainable(cpu)
+    eps = torch.randn((f["steps"], f["n_mc"], ml.n_weights(f["sizes"])), generator=gen)
+    out = {}
+    kw = dict(kl_weight=0.1, temperature=1.0, activation="relu", prior_std=1.0)
+    with torch.no_grad():
+        out["forward_sample"] = _compare(
+            "forward_sample", [ml.forward_sample(_on(trainable["layers"], dev), x.to(dev),
+                                                 eps[0, 0].to(dev), 1.0, "relu")],
+            [ml.forward_sample(trainable["layers"], x, eps[0, 0], 1.0, "relu")], 1e-5, 1e-6)
+        card = ml.elbo_loss(_on(trainable, dev), eps[0].to(dev), x.to(dev), y.to(dev), **kw)
+        ref = ml.elbo_loss(trainable, eps[0], x, y, **kw)
+        out["elbo_loss"] = _compare("elbo_loss", [card[0], *card[1]], [ref[0], *ref[1]], 1e-5, 0)
+    log(f"forward_sample and elbo_loss: card - CPU max |diff| {out['forward_sample']:.3g}, "
+        f"{out['elbo_loss']:.3g}")
+
+    def fit(device, graph):
+        tr, losses, kls, route = ml.run_fit(
+            Draws(given={"eps": eps}), _on(trainable, device), x.to(device), y.to(device),
+            n_steps=f["steps"], learning_rate=0.01, n_mc=f["n_mc"], graph=graph, **kw)
+        return [losses, kls], ml._flat(tr), route
+
+    (lc, pc, _), (le, pe, re_), (lg, pg, rg) = fit(cpu, False), fit(dev, False), fit(dev, True)
+    if (re_, rg) != ("eager", "graph"):
+        raise AssertionError(f"bnn fit: routes {re_}, {rg}")
+    if not all(torch.equal(a, b) for a, b in zip(lg + pg, le + pe)):
+        raise AssertionError("bnn fit: the graph replay differs from the eager loop")
+    out["fit_losses"] = _compare("bnn fit losses", le, lc, 1e-5, 0)
+    out["fit_params"] = _compare("bnn fit parameters", pe, pc, 0, 1e-4)
+    log(f"bnn fit {f['sizes']}, {f['n_points']} points, n_mc {f['n_mc']}, {f['steps']} steps: "
+        f"graph == eager bit for bit; card - CPU losses {out['fit_losses']:.3g}, parameters "
+        f"{out['fit_params']:.3g}")
+
+    tr_e, anchors = _ensemble_state(cpu)
+    xe, ye = _sinusoid(34, e["n_points"])
+
+    def ensemble(activation, steps):
+        def run(device, graph):
+            tr, losses, route = ml.run_anchored(_on(tr_e, device), _on(anchors, device),
+                                                xe.to(device), ye.to(device), n_steps=steps,
+                                                learning_rate=0.01, prior_std=1.0,
+                                                activation=activation, graph=graph)
+            return ([losses] + [t for l in tr["layers"] for t in (l["w"], l["b"])]
+                    + [tr["log_noise"]], route)
+        return run
+
+    # A relu unit whose input rounds to the other side of 0 on the card
+    # takes another gradient from there on: over 50 relu steps the card and
+    # the CPU part by up to 5.8e-4 (2.5e-6 after 20), so the card is held
+    # to the CPU over 50 tanh steps and 20 relu steps, and the 50 relu
+    # steps' difference is logged.
+    what = f"anchored ensemble {e['members']} x {e['sizes']}, {e['n_points']} points"
+    out["ensemble"] = _three_ways(f"{what}, tanh, {e['steps']} steps",
+                                  ensemble("tanh", e["steps"]), cpu, dev, 1e-4, 1e-4)
+    out["ensemble_relu_20"] = _three_ways(f"{what}, relu, 20 steps", ensemble("relu", 20), cpu,
+                                          dev, 1e-4, 1e-4)
+    out["ensemble_relu_50_logged"] = _three_ways(f"{what}, relu, {e['steps']} steps (logged)",
+                                                 ensemble("relu", e["steps"]), cpu, dev, 1e-4,
+                                                 1e-4, gate=False)
+
+    xp = torch.linspace(-1, 1, pr["n_points"])[:, None]
+    eps_p = torch.randn((1, pr["n_samples"], ml.n_weights(f["sizes"])), generator=gen)
+
+    def predict(device, graph):
+        pred, route = ml.run_predict(Draws(given={"eps": eps_p}), _on(trainable["layers"], device),
+                                     xp.to(device), 1.0, "relu", pr["n_samples"], graph=graph)
+        return [pred], route
+
+    out["predict"] = _three_ways(f"predict {pr['n_samples']} draws x {pr['n_points']} points",
+                                 predict, cpu, dev, 1e-5, 1e-5)
+    return out
+
+
+def phase_ml_suite(dev):
+    bench = MLBenchmark(seed=0, device=dev)
+    t0 = time.perf_counter()
+    rows = {r.name: r.summary() for r in bench.run_all_benchmarks(quick=False)}
+    wall = time.perf_counter() - t0
+    for name, row in rows.items():
+        log(f"ML row {name} (route {bench.routes[name]}): {json.dumps(row)}")
+    bad = [n for n, r in rows.items() if not 0.85 <= r["coverage_95"] <= 1.0]
+    bad += [n for n in ("sinusoid", "sinusoid_mcmc") if not rows[n]["r2"] > 0.9]
+    ex = rows["extrapolation"]
+    if not (ex["uncertainty_ratio"] > 5.0 and 0.88 <= ex["coverage_95"] <= 1.0):
+        bad.append("extrapolation")
+    if bad:
+        raise AssertionError(f"ML rows out of their bands: {bad}")
+    if any(r != "graph" for r in bench.routes.values()):
+        raise AssertionError(f"an ML row ran eagerly: {bench.routes}")
+    log(f"ML suite at full size: {wall:.3f} s, every row in its band, routes {bench.routes}")
+
+    dp = measure_bnn_dp_scaling(devices=[dev] * 4)
+    one = bnn_dp_row([dev], 4 * DP_POINTS)
+    rel = abs(dp["all_devices"]["loss_final"] - one["loss_final"]) / abs(one["loss_final"])
+    log(f"bnn_dp: one device {DP_POINTS} points {dp['1_device']['points_per_s']:.6g} points/s; "
+        f"[cuda:0] * 4, {4 * DP_POINTS} points {dp['all_devices']['points_per_s']:.6g} points/s; "
+        f"the same points on one device {one['points_per_s']:.6g} points/s; final losses "
+        f"{dp['all_devices']['loss_final']:.7g} (split) and {one['loss_final']:.7g} (one device), "
+        f"relative difference {rel:.3g}")
+    if not rel <= 1e-4:
+        raise AssertionError("bnn_dp: the split run's final loss differs from one device's")
+    return {"rows": rows, "routes": bench.routes, "wall_s": wall,
+            "bnn_dp": {**dp, "one_device_same_points": one, "split_vs_one_rel": rel}}
+
+
+def phase_runner(dev, workdir):
+    reset_counts()
+    runner = BenchmarkRunner(seed=0, output_dir=workdir, device=dev)
+    out = runner.run_all(quick=True)
+    got = counts()
+    for suite, names in RUNNER_ROWS.items():
+        if [r["name"] for r in out["suites"][suite]] != names:
+            raise AssertionError(f"runner suite {suite}: rows {out['suites'][suite]}")
+    want_routes = {"sampling": 3, "optimization": 5, "ml": 4, "comparison": 3}
+    for suite, n in want_routes.items():
+        if len(runner.routes[suite]) != n or not all(runner.routes[suite].values()):
+            raise AssertionError(f"runner suite {suite}: routes {runner.routes[suite]}")
+    k5 = got[NAMES.index("K5")]
+    log(f"runner quick: {out['total_time_s']} s (total_time_s); routes {runner.routes}; launches "
+        + ", ".join(f"{k} {n}" for k, n in zip(NAMES, got)))
+    if k5 <= 0 or any(n for k, n in zip(NAMES, got) if k != "K5"):
+        raise AssertionError(f"runner quick: expected K5 launches (spin_glass_ea) only, got {got}")
+    lm = LATTICE_MATCHED
+    reset_counts()
+    t0 = time.perf_counter()
+    matched = measure_lattice_matched(device=dev, **lm)
+    wall = time.perf_counter() - t0
+    got = counts()
+    log(f"measure_lattice_matched {lm}: {matched['flips_per_s']:.6g} flips/s, {wall:.3f} s; "
+        "launches " + ", ".join(f"{k} {n}" for k, n in zip(NAMES, got)))
+    if got != expect((1 + lm["n_iters"]) * lm["n_sweeps"]):
+        raise AssertionError(f"measure_lattice_matched: launches {got}")
+    return {"quick_wall_s": out["total_time_s"], "suites": out["suites"],
+            "routes": runner.routes, "spin_glass_ea_k5_launches": k5,
+            "lattice_matched": {**matched, "wall_s": wall, "k1_launches": got[0]}}
+
+
+def phase_bnn_timing(dev, name):
+    """ms per step of the BNN loops, eager and graphed in turns, and the
+    host's launch calls per step."""
+    f, e, pr = BNN_FIT, BNN_ENSEMBLE, PREDICT
+    cpu = torch.device("cpu")
+    x, y = _sinusoid(36, f["n_points"])
+    xe, ye = _sinusoid(37, e["n_points"])
+    xp = torch.linspace(-1, 1, pr["n_points"])[:, None].to(dev)
+    trainable = _on(_bnn_trainable(cpu), dev)
+    tr_e, anchors = (_on(t, dev) for t in _ensemble_state(cpu))
+    draws = Draws(torch.Generator(device=dev).manual_seed(36))
+    what = {"fit": f"BNN fit step {f['sizes']}, {f['n_points']} points, n_mc {f['n_mc']}",
+            "ensemble": f"ensemble step {e['members']} x {e['sizes']}, {e['n_points']} points",
+            "predict": f"predict {pr['n_samples']} draws x {pr['n_points']} points (a step is a call)"}
+    loops = {}
+    for g in (False, True):
+        ml.run_fit(draws, trainable, x.to(dev), y.to(dev), n_steps=1, learning_rate=0.01,
+                   kl_weight=0.1, temperature=1.0, prior_std=1.0, n_mc=f["n_mc"],
+                   activation="relu", graph=g)
+        ml.run_anchored(tr_e, anchors, xe.to(dev), ye.to(dev), n_steps=1, learning_rate=0.01,
+                        prior_std=1.0, activation="relu", graph=g)
+        ml.run_predict(draws, trainable["layers"], xp, 1.0, "relu", pr["n_samples"], graph=g)
+        loops["graph" if g else "eager"] = {
+            what["fit"]: ml.fit_loop(f["sizes"], "relu", f["n_mc"], f["n_points"], True, dev,
+                                     graph=g),
+            what["ensemble"]: ml.ensemble_loop(e["sizes"], e["members"], "relu", e["n_points"],
+                                               dev, graph=g),
+            what["predict"]: ml.predict_loop(f["sizes"], "relu", pr["n_samples"], pr["n_points"],
+                                             dev, graph=g)}
+
+    def run(lp, n):
+        if lp.name == "bnn predict":
+            for _ in range(n):
+                lp.run(draws, 1)
+        else:
+            lp.run(draws, n)
+
+    return _loop_timings(loops, {what["fit"]: 64, what["ensemble"]: 64, what["predict"]: 20},
+                         run, name)
 
 
 def main() -> int:
@@ -2635,6 +2934,27 @@ def main() -> int:
     log("slice 5: " + json.dumps({"exact_max_abs_diff": exact, "statistics_routes": stat_routes,
                                   "paths": paths5, "ms_per_step": timing5,
                                   "seconds": slice5_s, "card": name}))
+
+    t_slice6 = time.perf_counter()
+    bnn_exact = phase_bnn_exact(dev)
+    log("phase 33: the BNN loops' graphs == their eager loops bit for bit, the card == the CPU "
+        "on the same draws")
+
+    ml_suite = phase_ml_suite(dev)
+    log("phase 34: the ML suite at full size is in its bands on its graphs; bnn_dp split == one "
+        "device")
+
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
+        runner = phase_runner(dev, workdir)
+    log("phase 35: the quick runner ran every row of its four suites; lattice_matched ran K1")
+
+    timing6 = phase_bnn_timing(dev, name)
+    log("phase 36: timed")
+    slice6_s = time.perf_counter() - t_slice6
+    log(f"phases 33-36 added {slice6_s:.1f} s")
+    log("slice 6: " + json.dumps({"exact_max_abs_diff": bnn_exact, "ml_suite": ml_suite,
+                                  "runner": runner, "ms_per_step": timing6,
+                                  "seconds": slice6_s, "card": name}, default=float))
 
     R, C2 = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2
     site = R * C2                                     # compact sites of one 4096^2 plane

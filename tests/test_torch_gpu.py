@@ -1133,3 +1133,101 @@ def test_continuous_api_on_the_card(cuda):
     assert one["route"] == four["route"] == "graph"
     np.testing.assert_array_equal(four["particles"], one["particles"].cpu().numpy())
     assert four["log_Z"] == float(one["log_Z"])
+
+
+# -- slice 6: the BNN loops on the card ----------------------------------------
+
+
+def _bnn_setup(n_points=40, sizes=(1, 16, 16, 1)):
+    from tsu_tpu_torch.models import ml
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(-1, 1, (n_points, 1)).astype(np.float32))
+    y = torch.sin(3 * x)
+    net = ml.BayesianRegressor(1, list(sizes[1:-1]), seed=0, device="cpu")
+    trainable = {"layers": [{k: v.detach().clone() for k, v in p.items()} for p in net.params],
+                 "log_noise": net.log_noise.detach().clone()}
+    return ml, x, y, trainable
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("which", ["fit", "ensemble", "predict"])
+def test_bnn_loop_graph_equals_eager_and_cpu(cuda, which):
+    """Each BNN loop on one set of draws: the graph replay == the eager loop
+    on the card bit for bit, the card == the CPU (losses within 1e-5
+    relative, the ensemble's 1e-4; parameters and predictions within
+    1e-4). The ensemble runs tanh units: a relu unit whose input rounds to
+    the other side of 0 on the card takes another gradient from there on."""
+    from tsu_tpu_torch.samplers.loop import Draws
+
+    ml, x, y, trainable = _bnn_setup()
+    sizes = (1, 16, 16, 1)
+    gen = torch.Generator().manual_seed(1)
+
+    if which == "fit":
+        eps = torch.randn((70, 3, ml.n_weights(sizes)), generator=gen)
+
+        def run(dev, graph):
+            tr, losses, kls, route = ml.run_fit(
+                Draws(given={"eps": eps}), _to(trainable, dev), x.to(dev), y.to(dev), n_steps=70,
+                learning_rate=0.01, kl_weight=0.1, temperature=1.0, prior_std=1.0, n_mc=3,
+                activation="relu", graph=graph)
+            return [losses, kls] + ml._flat(tr), route
+        rtol = 1e-5
+    elif which == "ensemble":
+        reg = ml.AnchoredEnsembleRegressor(1, [16, 16], n_members=4, seed=0, device="cpu")
+
+        def run(dev, graph):
+            tr, losses, route = ml.run_anchored(_to(reg.trainable, dev), _to(reg.anchors, dev),
+                                                x.to(dev), y.to(dev), n_steps=70,
+                                                learning_rate=0.01, prior_std=1.0,
+                                                activation="tanh", graph=graph)
+            return [losses, tr["log_noise"]] + [l["w"] for l in tr["layers"]], route
+        rtol = 1e-4
+    else:
+        eps = torch.randn((1, 50, ml.n_weights(sizes)), generator=gen)
+
+        def run(dev, graph):
+            pred, route = ml.run_predict(Draws(given={"eps": eps}), _to(trainable["layers"], dev),
+                                         x.to(dev), 1.0, "relu", 50, graph=graph)
+            return [pred], route
+        rtol = 1e-5
+    ref, _ = run(torch.device("cpu"), False)
+    eager, route_e = run(cuda, False)
+    graph, route_g = run(cuda, True)
+    assert (route_e, route_g) == ("eager", "graph")
+    for g, e, r in zip(graph, eager, ref):
+        assert torch.equal(g, e)
+        np.testing.assert_allclose(e.cpu().numpy(), r.numpy(), rtol=rtol, atol=1e-4)
+
+
+def test_bnn_classes_on_the_card(cuda):
+    """The class surface on the card: a full-batch fit and the predictive
+    replay graphs, a minibatch fit over [cuda] * 2 equals one device's."""
+    from tsu_tpu_torch import AnchoredEnsembleRegressor, BayesianRegressor
+    from tsu_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, (64, 1)).astype(np.float32)
+    y = np.sin(3 * x).astype(np.float32)
+    reg = BayesianRegressor(1, [16], seed=0, device=cuda)
+    reg.fit(x, y, n_epochs=100, batch_size=64)
+    assert reg.last_route == "graph"
+    res = reg.predict(x, n_samples=30)
+    assert reg.last_route == "graph" and res.samples.shape == (30, 64, 1)
+    ens = AnchoredEnsembleRegressor(1, [16], n_members=4, seed=0, device=cuda)
+    ens.fit(x, y, n_epochs=100)
+    assert ens.last_route == "graph" and ens.loss_history[-1] < ens.loss_history[0]
+    a = BayesianRegressor(1, [8], seed=1, device=cuda)
+    b = BayesianRegressor(1, [8], seed=1, device=cuda)
+    ha = a.fit(x, y, n_epochs=3, batch_size=16)["loss_history"]
+    hb = b.fit(x, y, n_epochs=3, batch_size=16,
+               mesh=make_mesh(chains=2, devices=[cuda] * 2))["loss_history"]
+    np.testing.assert_allclose(hb, ha, rtol=1e-5)

@@ -15,7 +15,11 @@ long runs. Continuous energies sample by Langevin dynamics
 (``ThermalSamplingUnit``), MALA, HMC, NUTS, annealed SMC and mean-field VI,
 their step loops replayed as CUDA graphs (``samplers/loop.py``), behind the
 reference's sampler API (``GaussianSampler``, ``sample_gaussian``, ...).
-Entry points run on
+Bayesian neural networks train by SVI and anchored ensembles on graphed
+loops (``models/ml.py``), beside the probabilistic layers of the API, the
+hardware models, profiling hooks and the benchmark suites
+(``tsu_tpu_torch.benchmarks``). The namespace carries every name of
+``tsu_tpu`` but its plot functions. Entry points run on
 the card unless the caller passes ``device="cpu"``, which runs the plain
 PyTorch versions.
 """
@@ -23,12 +27,16 @@ PyTorch versions.
 from tsu_tpu_torch.api import (
     Backend,
     BayesianSampler,
+    BernoulliActivation,
     GaussianSampler,
     MaxCutProblem,
     MultimodalSampler,
     OptimizationProblem,
+    ProbabilisticLayer,
+    ProbabilisticModel,
     Sampler,
     SamplingResult,
+    StochasticLinear,
     compare_samplers,
     optimize,
     sample_gaussian,
@@ -44,11 +52,28 @@ from tsu_tpu_torch.config import (
 )
 from tsu_tpu_torch.core import ProbabilisticNeuron, ThermalSamplingUnit, validate_distribution
 from tsu_tpu_torch.energy import BNNPosterior, MixtureOfGaussians, Quadratic
+from tsu_tpu_torch.hardware import (
+    ConservativeEstimator,
+    GPUHardwareSpec,
+    HardwareEmulator,
+    HardwarePerformanceEstimator,
+    TPUHardwareSpec,
+    TSUHardwareSpec,
+)
 from tsu_tpu_torch.models.ising import (
     IsingChain,
     IsingGrid,
     IsingModel,
     demonstrate_phase_transition,
+)
+from tsu_tpu_torch.models.ml import (
+    AnchoredEnsembleRegressor,
+    BayesianLinear,
+    BayesianNetwork,
+    BayesianRegressor,
+    PosteriorSample,
+    PredictionResult,
+    StochasticLayer,
 )
 from tsu_tpu_torch.ops.checkerboard_resident import resident_anneal, resident_sweeps
 from tsu_tpu_torch.parallel import (
@@ -75,14 +100,26 @@ from tsu_tpu_torch.samplers import (
     sample_nuts,
 )
 
+# Alias of the reference's namespace.
+TSU = ThermalSamplingUnit
+
 __all__ = [
+    "AnchoredEnsembleRegressor",
     "BNNPosterior",
     "Backend",
+    "BayesianLinear",
+    "BayesianNetwork",
+    "BayesianRegressor",
     "BayesianSampler",
+    "BernoulliActivation",
     "ConfigurationError",
+    "ConservativeEstimator",
+    "GPUHardwareSpec",
     "GaussianSampler",
     "GibbsConfig",
     "GibbsSampler",
+    "HardwareEmulator",
+    "HardwarePerformanceEstimator",
     "IsingChain",
     "IsingConfig",
     "IsingGrid",
@@ -92,13 +129,22 @@ __all__ = [
     "MixtureOfGaussians",
     "MultimodalSampler",
     "OptimizationProblem",
+    "PosteriorSample",
+    "PredictionResult",
+    "ProbabilisticLayer",
+    "ProbabilisticModel",
     "ProbabilisticNeuron",
     "Quadratic",
     "Sampler",
     "SamplingError",
     "SamplingResult",
+    "StochasticLayer",
+    "StochasticLinear",
+    "TPUHardwareSpec",
+    "TSU",
     "TSUConfig",
     "TSUError",
+    "TSUHardwareSpec",
     "ThermalSamplingUnit",
     "anneal_spin_glass",
     "annealed_smc",
@@ -113,6 +159,7 @@ __all__ = [
     "parallel_tempering_bonds",
     "plan_lattice_mesh",
     "pt_ground_state_search",
+    "quick_demo",
     "resident_anneal",
     "resident_sweeps",
     "sample_gaussian",
@@ -126,3 +173,25 @@ __all__ = [
     "sharded_lattice_sample",
     "validate_distribution",
 ]
+
+
+def quick_demo(device=None):
+    """A quick demonstration of the core capabilities on ``device``
+    (default the card): Gaussian sampling and a 16x16 Ising grid."""
+    import numpy as np
+
+    from tsu_tpu_torch.config import resolve_device
+
+    dev = resolve_device(device)
+    print("tsu_tpu_torch quick demo")
+    print("=" * 40)
+    sampler = GaussianSampler(mu=0.0, sigma=1.0,
+                              backend=Backend.CPU if dev.type == "cpu" else Backend.CUDA)
+    result = sampler.sample(n_samples=1000)
+    print(f"Gaussian sampling: mean={np.mean(result.samples):+.3f} "
+          f"std={np.std(result.samples):.3f} "
+          f"({result.metadata['samples_per_second']:.0f} samples/s)")
+    grid = IsingGrid((16, 16), coupling_strength=1.0, device=dev)
+    samples = grid.sample(n_samples=64, temperature=1.5)
+    print(f"Ising 16x16 @ T=1.5: |M|={abs(grid.magnetization(samples)):.3f}")
+    print("Demo complete.")

@@ -4,7 +4,10 @@ Counterpart of the sampler and optimization parts of ``tsu_tpu/api.py``:
 ``Sampler`` and its Gaussian, mixture and Bayesian-regression samplers on
 the Langevin engine (``ThermalSamplingUnit``), the functional
 ``sample_gaussian`` / ``sample_multimodal`` / ``compare_samplers``, and
-``OptimizationProblem``, ``MaxCutProblem`` and ``optimize``.
+``OptimizationProblem``, ``MaxCutProblem`` and ``optimize``, and the
+probabilistic-layer half: ``ProbabilisticLayer``, ``StochasticLinear``,
+``BernoulliActivation`` and the Keras-like ``ProbabilisticModel``, numpy in
+and numpy out, their noise drawn on the layer's device.
 
 ``Backend`` names the port's targets: the CPU and the card. The reference's
 TPU members are aliases of the card; asking for the card without CUDA
@@ -338,3 +341,95 @@ def _anneal_langevin(problem: OptimizationProblem, n_steps: int, initial_temp: f
     objs = [float(obj(xi)) for xi in x]
     best = x[int(np.argmin(objs))]
     return best.cpu().numpy(), float(obj(best)), "graph" if routes == {"graph"} else "eager"
+
+
+# -- probabilistic model API -------------------------------------------------
+
+
+class ProbabilisticLayer(ABC):
+    """Abstract stochastic layer."""
+
+    @abstractmethod
+    def forward(self, x: np.ndarray, n_samples: Optional[int] = None) -> np.ndarray:
+        """Stochastic forward pass.
+
+        ``n_samples=None`` (default) returns one draw with the input's
+        shape; an integer returns ``(n_samples, ...)`` stacked independent
+        draws (0 gives an empty stack)."""
+
+
+def perturbed_linear(x: torch.Tensor, weights: torch.Tensor, bias: torch.Tensor,
+                     noise: torch.Tensor, weight_noise: float) -> torch.Tensor:
+    """x @ (weights + weight_noise * noise) + bias; ``noise`` (..., in, out)
+    gives (..., batch, out)."""
+    return x @ (weights + weight_noise * noise) + bias
+
+
+class StochasticLinear(ProbabilisticLayer):
+    """Linear layer with Gaussian weight noise, drawn anew every pass.
+    ``seed``: an int or a CPU ``torch.Generator`` (the initial weights, then
+    the noise's device stream); ``device`` default the card."""
+
+    def __init__(self, in_features: int, out_features: int, weight_noise: float = 0.1,
+                 seed=None, device=None):
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight_noise = weight_noise
+        self.device = resolve_device(device)
+        gen = as_generator(seed)
+        scale = 1.0 / np.sqrt(max(in_features, 1))
+        self.weights = (scale * torch.randn((in_features, out_features), generator=gen)).numpy()
+        self.bias = np.zeros(out_features, dtype=np.float32)
+        self._dgen = device_generator(gen, self.device)
+
+    def forward(self, x: np.ndarray, n_samples: Optional[int] = None) -> np.ndarray:
+        # `is not None`, not truthiness: n_samples=0 must give an empty
+        # (0, batch, out) stack, not one unstacked draw.
+        shape = ((n_samples,) if n_samples is not None else ()) + self.weights.shape
+        noise = torch.randn(shape, generator=self._dgen, device=self.device)
+        x = torch.atleast_2d(torch.as_tensor(np.asarray(x, np.float32))).to(self.device)
+        return perturbed_linear(x, torch.as_tensor(self.weights).to(self.device),
+                                torch.as_tensor(self.bias).to(self.device), noise,
+                                self.weight_noise).cpu().numpy()
+
+
+class BernoulliActivation(ProbabilisticLayer):
+    """Stochastic binary activation: one ``torch.bernoulli`` of sigmoid(x)
+    over the whole tensor, on the layer's device (default the card)."""
+
+    def __init__(self, seed=None, device=None):
+        self.device = resolve_device(device)
+        self._dgen = device_generator(seed, self.device)
+
+    def forward(self, x: np.ndarray, n_samples: Optional[int] = None) -> np.ndarray:
+        p = torch.sigmoid(torch.as_tensor(np.asarray(x, np.float32)).to(self.device))
+        if n_samples is not None:
+            p = p.expand(n_samples, *p.shape)
+        return torch.bernoulli(p, generator=self._dgen).cpu().numpy()
+
+
+class ProbabilisticModel:
+    """Keras-like stochastic model."""
+
+    def __init__(self):
+        self.layers: List[ProbabilisticLayer] = []
+
+    def add(self, layer: ProbabilisticLayer) -> "ProbabilisticModel":
+        if not isinstance(layer, ProbabilisticLayer):
+            raise ConfigurationError("layer must be a ProbabilisticLayer")
+        self.layers.append(layer)
+        return self
+
+    def forward(self, x: np.ndarray) -> np.ndarray:
+        h = np.atleast_2d(np.asarray(x, dtype=np.float32))
+        for layer in self.layers:
+            h = layer.forward(h)
+        return h
+
+    def sample(self, x: np.ndarray, n_samples: int = 100) -> np.ndarray:
+        """(n_samples, ...) independent stochastic outputs for one input."""
+        return np.stack([self.forward(x) for _ in range(n_samples)])
+
+    def predict_proba(self, x: np.ndarray, n_samples: int = 100) -> np.ndarray:
+        """Mean over stochastic forward passes."""
+        return np.mean(self.sample(x, n_samples), axis=0)

@@ -5,7 +5,10 @@ of compact (R, C/2) planes, its bond state as per-colour weight or code
 planes, a dense model as numpy (J, h), a sparse graph as ELL arrays, its
 ``IsingConfig`` and ``TSUConfig`` as frozen dataclasses, a continuous state
 as a flat vector or a (n_chains, dim) array, a BNN posterior as its data and
-fields, and a mean-field fit as (mu, rho). These helpers turn each into the
+fields, a mean-field fit as (mu, rho), a variational BNN as its list of
+layer dicts (``w_mu``, ``w_rho``, ``b_mu``, ``b_rho``) and ``log_noise``, an
+anchored ensemble as its stacked member layers, and a ``StochasticLinear``
+as its weights and bias. These helpers turn each into the
 port's tensors, models and configs without importing ``tsu_tpu``: callers
 hand over numpy arrays and plain fields.
 """
@@ -137,3 +140,66 @@ def ell_from_numpy(neighbor_idx, neighbor_w, *, device=None):
                                  f"{idx.shape} and {w.shape}")
     return (torch.tensor(idx.astype(np.int64), device=device),
             torch.tensor(w, device=device))
+
+
+def bnn_from_numpy(layer_sizes, params, log_noise=None, *, activation: str = "relu",
+                   prior_std: float = 1.0, temperature: float = 1.0, seed=None, device=None):
+    """The JAX package's ``BayesianNetwork`` from its ``params`` (a list of
+    {"w_mu", "w_rho", "b_mu", "b_rho"} arrays) and ``log_noise`` (None when
+    the noise is not learned) as the port's, with those weights."""
+    from tsu_tpu_torch.models.ml import KEYS, BayesianNetwork
+
+    net = BayesianNetwork(list(layer_sizes), activation=activation, prior_std=prior_std,
+                          temperature=temperature, seed=seed,
+                          learn_observation_noise=log_noise is not None, device=device)
+    if len(params) != len(net.layers):
+        raise ConfigurationError(f"{len(params)} layers given for sizes {list(layer_sizes)}")
+    with torch.no_grad():
+        for layer, p in zip(net.layers, params):
+            for k in KEYS:
+                src = states_from_numpy(p[k])
+                if src.shape != getattr(layer, k).shape:
+                    raise ConfigurationError(f"{k} has shape {tuple(src.shape)}, the layer "
+                                             f"{tuple(getattr(layer, k).shape)}")
+                getattr(layer, k).copy_(src)
+        if log_noise is not None:
+            net.log_noise.copy_(states_from_numpy(log_noise).reshape(net.log_noise.shape))
+    return net
+
+
+def ensemble_from_numpy(anchors, trainable, *, activation: str = "relu", prior_std: float = 1.0,
+                        seed=None, device=None):
+    """The JAX package's ``AnchoredEnsembleRegressor`` from its ``anchors``
+    and ``trainable`` ({"layers", "log_noise"}), each layer {"w" (M, a, b),
+    "b" (M, b)} stacked over the M members, as the port's."""
+    from tsu_tpu_torch.models.ml import AnchoredEnsembleRegressor
+
+    layers = trainable["layers"]
+    ws = [np.asarray(layer["w"]) for layer in layers]
+    reg = AnchoredEnsembleRegressor(ws[0].shape[1], [w.shape[2] for w in ws[:-1]],
+                                    n_members=ws[0].shape[0], activation=activation,
+                                    prior_std=prior_std, seed=seed, device=device)
+    for dst_layers, src_layers in ((reg.anchors, anchors), (reg.trainable["layers"], layers)):
+        for dst, src in zip(dst_layers, src_layers):
+            for k in ("w", "b"):
+                t = states_from_numpy(src[k], device=reg.device)
+                if t.shape != dst[k].shape:
+                    raise ConfigurationError(f"{k} has shape {tuple(t.shape)}, expected "
+                                             f"{tuple(dst[k].shape)}")
+                dst[k] = t
+    reg.trainable["log_noise"] = states_from_numpy(trainable["log_noise"], device=reg.device)
+    return reg
+
+
+def stochastic_linear_from_numpy(weights, bias, weight_noise: float = 0.1, *, seed=None,
+                                 device=None):
+    """The JAX package's ``StochasticLinear`` from its weights (in, out),
+    bias (out,) and weight noise as the port's."""
+    from tsu_tpu_torch.api import StochasticLinear
+
+    w = np.asarray(weights, np.float32)
+    layer = StochasticLinear(w.shape[0], w.shape[1], weight_noise=weight_noise, seed=seed,
+                             device=device)
+    layer.weights = w.copy()
+    layer.bias = np.asarray(bias, np.float32).reshape(w.shape[1]).copy()
+    return layer

@@ -49,6 +49,13 @@ def make_schedule(T_initial: float, T_final: float, n_steps: int,
     raise ValueError(f"unknown cooling schedule {kind!r}")
 
 
+def takes_native(n: int, n_steps: int, n_chains: int) -> bool:
+    """Whether :func:`simulated_annealing_dense` with an int seed anneals n
+    bits on the native host loop (n <= 256 and n^2 * n_steps * n_chains <=
+    2^31)."""
+    return n <= 256 and n * n * n_steps * max(n_chains, 1) <= (1 << 31)
+
+
 def simulated_annealing_dense(seed, J, h, *, T_initial: float = 10.0, T_final: float = 0.1,
                               n_steps: int = 1000, cooling_schedule: str = "exponential",
                               n_chains: int = 1, device=None):
@@ -68,8 +75,7 @@ def simulated_annealing_dense(seed, J, h, *, T_initial: float = 10.0, T_final: f
     h_np = np.asarray(h, np.float32)
     n = J_np.shape[0]
     schedule = make_schedule(T_initial, T_final, n_steps, cooling_schedule)
-    small = n <= 256 and n * n * n_steps * max(n_chains, 1) <= (1 << 31)
-    if small and isinstance(seed, (int, np.integer)):
+    if takes_native(n, n_steps, n_chains) and isinstance(seed, (int, np.integer)):
         from tsu_tpu_torch.native import sa_dense_native
 
         state, e = sa_dense_native(J_np, h_np, schedule, n_chains, int(seed))

@@ -3,4 +3,4 @@
 none of them."""
 
 __all__ = ["bench", "bodies", "bond_bodies", "halfsweep_bodies", "kernel_bench",
-           "kernel_decomposition", "profile_paths", "resident_bodies", "sass_count", "timing"]
+           "kernel_decomposition", "ml_seed_spread", "profile_paths", "resident_bodies", "sass_count", "timing"]

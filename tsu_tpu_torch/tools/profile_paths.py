@@ -6,10 +6,10 @@ Run from the repository root on a machine with a card:
     python3 -m tsu_tpu_torch.tools.profile_paths [--out DIR] [--only NAME ...]
 
 Each path runs at the size ``chip_smoke.py`` drives it (phases 5, 9, 13, 17,
-22, 26, 27 and 31), once to warm up and once under the profiler; the dense
-sample reuses its model, and the continuous samplers their cached step
-loops, so the profiled call replays the CUDA graphs captured by the
-warm-up. For each path it prints
+22, 26, 27, 31 and 34), once to warm up and once under the profiler; the
+dense sample reuses its model, and the continuous samplers and the BNN fits
+their cached step loops, so the profiled call replays the CUDA graphs
+captured by the warm-up. For each path it prints
 the wall time, the device busy time and idle share, the count and device
 time of the port's kernels, the host's launch calls (kernels, and CUDA
 graphs, one call each) and their host time,
@@ -39,6 +39,8 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch import (
+    AnchoredEnsembleRegressor,
+    BayesianRegressor,
     BNNPosterior,
     Quadratic,
     IsingConfig,
@@ -129,6 +131,19 @@ def bnn_start(post: BNNPosterior, chains: int, seed: int = 0) -> torch.Tensor:
     return 0.1 * torch.randn((chains, post.dim), generator=torch.Generator().manual_seed(seed))
 
 
+def ml_rows_data(seed: int = 0):
+    """The ML suite's sinusoid split (100 points, ``default_rng(seed)``) and
+    its extrapolation split (80 points of x^3 + 0.05 N from ``seed + 2``),
+    as ``tsu_tpu_torch/benchmarks/ml.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (100, 1)).astype(np.float32)
+    y = (np.sin(3 * x) + 0.1 * rng.normal(size=x.shape)).astype(np.float32)
+    rng = np.random.default_rng(seed + 2)
+    xe = rng.uniform(-1, 1, (80, 1)).astype(np.float32)
+    ye = (xe**3 + 0.05 * rng.normal(size=xe.shape)).astype(np.float32)
+    return (x, y), (xe, ye)
+
+
 def _dense_model(dev) -> IsingModel:
     n, chains, _ = DENSE
     model = IsingModel(n, config=IsingConfig(n_chains=chains), seed=0, device=dev)
@@ -147,6 +162,7 @@ def paths(dev) -> dict:
     dense = _dense_model(dev)
     edges, weights = suite_graph(*SPARSE[:2])
     post = full_bayes_posterior()
+    (x, y), (xe, ye) = ml_rows_data()
     return {
         "sample": lambda: IsingGrid(GRID, periodic=True, seed=0, device=dev).sample(
             n_samples=4, temperature=2.269),
@@ -194,6 +210,14 @@ def paths(dev) -> dict:
         "mala bnn 1153": lambda: sample_mala(
             0, bnn_start(post, FULL_BAYES["chains"]), energy_fn=post, n_samples=FULL_BAYES["draws"],
             step_size=FULL_BAYES["step"], n_burnin=FULL_BAYES["burnin"], device=dev),
+        # Slice 6 (phase 34): the ML suite's sinusoid fit (800 full-batch
+        # ELBO steps of a (1, 32, 32, 1) BNN, n_mc 3) and its extrapolation
+        # row's anchored ensemble (8 members, 2,000 steps).
+        "bnn fit sinusoid 800": lambda: BayesianRegressor(1, [32, 32], seed=0, device=dev).fit(
+            x, y, n_epochs=800, batch_size=100, learning_rate=0.01, kl_weight=0.1),
+        "anchored ensemble 2000": lambda: AnchoredEnsembleRegressor(
+            1, [32, 32], n_members=8, seed=0, device=dev).fit(xe, ye, n_epochs=2000,
+                                                             learning_rate=0.01),
     }
 
 
