@@ -190,17 +190,44 @@ Phases, each of which raises on failure:
     measure_bnn_dp_scaling at its defaults on make_mesh's [cuda:0] * 4,
     whose 4 x 16,384-point split run must equal the same points on one
     device within 1e-4 relative;
-35. BenchmarkRunner(seed=0).run_all(quick=True) end to end into a temporary
-    directory: every row of the four suites, each row's route, K5's
-    launches in spin_glass_ea and the quick-mode wall; then
-    measure_lattice_matched at 4096^2 x 2,500 sweeps (10,000 K1 launches
-    in shard mode);
+35. measure_lattice_matched at 4096^2 x 2,500 sweeps (10,000 K1 launches
+    in shard mode); the quick runner's checks (every row of the four
+    suites, each row's route, K5's launches in spin_glass_ea alone, the
+    quick-mode wall) run in phase 37 on the CLI's run of it;
 36. ms per step of the BNN fit step, the ensemble step and a 200-draw
     predictive on 200 points, eager and graphed in turns, and the host's
-    launch calls per step of each.
+    launch calls per step of each;
+37. the command line at its users' sizes through cli.main, each command
+    from zeroed counts with its wall, launches and output: version; sample
+    at its defaults; ising-sweep at the phase scan's 16 temperatures x
+    1024^2 (328 K2 launches; |M| > 0.9 at the coldest, < 0.2 at the
+    hottest); anneal --size 4096 --steps 1000 (1,000 K2; below -1.85 per
+    site, phase 9's bound);
+    anneal --spin-glass at 4096^2, 3,000 steps, 2 restarts, checkpointed
+    (12,000 K4; below -1.3 per site), then resumed from the snapshot
+    (the same JSON, no launch); bnn at its defaults (9 predictions); bench
+    --quick --no-save with phase 35's checks on the runner's result;
+38. critical_ess's Tc_L64 (thin 6, 103,829 measurements padded to 120,000)
+    and T3.0_L4096 (2,000 burn-in, 20,000 measurements, thin 1) rows at the
+    script's settings, each with its K1 launches (840,000 and 40,000), its
+    tau_int, ESS/s, run_over_tau and wall (<|m|> < 0.01 at T = 3.0, every
+    tau finite and positive), the Wolff row at L = 64 (4,000 steps, host
+    numpy in a second process started with phase 37) and the 4096^2
+    projection at K1's rate measured here (one tools.bench headline call)
+    beside the card's name;
+39. demo_continuous_sampling (3 of 3 modes), demo_phase_transition (|M|
+    within 0.1 of Onsager at T <= 2.0) and demo_bayesian_inference (the
+    posterior mean within 0.1 of theta) on the card; pt_spin_glass_probe at
+    its defaults (256^2, 2,000 iterations; K5 alone); scaling_projection's
+    measured row (10,000 K1 launches in shard mode) and its projections;
+    with matplotlib the demos' figures drawn on Agg into a temporary
+    directory, without it a plot call's ImportError;
+40. graft_entry: entry()'s sweep of 256^2 once (one K1 launch), then
+    dryrun_multichip(4) on the visible card and cuda:0 repeated (K1's shard
+    mode, K3, K2 and a data-parallel BNN step).
 
-A "slice 4:", a "slice 5:" and a "slice 6:" JSON log line carry those
-phases' numbers.
+A "slice 4:", a "slice 5:", a "slice 6:" and a "slice 7:" JSON log line
+carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
@@ -208,17 +235,24 @@ card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
 and their CUDA counterparts; K1 and K2 also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
-grid-stride body's time, the barrier cost and the grid)
+grid-stride body's time, the barrier cost and the grid; K1-K5 the launches
+of each slice-7 path that ran them)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
+import multiprocessing
+import os
 import sys
+import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -250,6 +284,7 @@ from tsu_tpu_torch import (
     validate_distribution,
 )
 from tsu_tpu_torch import AnchoredEnsembleRegressor, BayesianRegressor, native
+from tsu_tpu_torch import cli, demos, graft_entry, plot_phase_transition
 from tsu_tpu_torch.benchmarks import BenchmarkRunner, MLBenchmark
 from tsu_tpu_torch.benchmarks.scaling import (
     bnn_dp_row,
@@ -315,7 +350,8 @@ from tsu_tpu_torch.parallel import (
     sharded_checkerboard_sweeps,
     sharded_lattice_sample,
 )
-from tsu_tpu_torch.rng import sweep_keys
+from tsu_tpu_torch.oracle import wolff_chain
+from tsu_tpu_torch.rng import fold_seed, sweep_keys
 from tsu_tpu_torch.samplers import (
     anneal_spin_glass,
     build_tempering_ladder,
@@ -337,10 +373,13 @@ from tsu_tpu_torch.samplers.smc import run_smc, smc_loop
 from tsu_tpu_torch.samplers.vi import run_vi, vi_loop
 from tsu_tpu_torch.tools import (
     bench,
+    critical_ess,
     halfsweep_bodies,
     kernel_bench,
     kernel_decomposition,
+    pt_spin_glass_probe,
     resident_bodies,
+    scaling_projection,
 )
 from tsu_tpu_torch.tools.profile_paths import (
     DENSE,
@@ -2721,11 +2760,10 @@ def phase_ml_suite(dev):
             "bnn_dp": {**dp, "one_device_same_points": one, "split_vs_one_rel": rel}}
 
 
-def phase_runner(dev, workdir):
-    reset_counts()
-    runner = BenchmarkRunner(seed=0, output_dir=workdir, device=dev)
-    out = runner.run_all(quick=True)
-    got = counts()
+def check_quick_runner(runner, out, got) -> int:
+    """Phase 35's checks of a quick run of the runner: every row of the four
+    suites, each row's route, and K5's launches (spin_glass_ea) alone;
+    returns K5's launches."""
     for suite, names in RUNNER_ROWS.items():
         if [r["name"] for r in out["suites"][suite]] != names:
             raise AssertionError(f"runner suite {suite}: rows {out['suites'][suite]}")
@@ -2738,6 +2776,10 @@ def phase_runner(dev, workdir):
         + ", ".join(f"{k} {n}" for k, n in zip(NAMES, got)))
     if k5 <= 0 or any(n for k, n in zip(NAMES, got) if k != "K5"):
         raise AssertionError(f"runner quick: expected K5 launches (spin_glass_ea) only, got {got}")
+    return k5
+
+
+def phase_lattice_matched(dev):
     lm = LATTICE_MATCHED
     reset_counts()
     t0 = time.perf_counter()
@@ -2748,9 +2790,7 @@ def phase_runner(dev, workdir):
         "launches " + ", ".join(f"{k} {n}" for k, n in zip(NAMES, got)))
     if got != expect((1 + lm["n_iters"]) * lm["n_sweeps"]):
         raise AssertionError(f"measure_lattice_matched: launches {got}")
-    return {"quick_wall_s": out["total_time_s"], "suites": out["suites"],
-            "routes": runner.routes, "spin_glass_ea_k5_launches": k5,
-            "lattice_matched": {**matched, "wall_s": wall, "k1_launches": got[0]}}
+    return {**matched, "wall_s": wall, "k1_launches": got[0]}
 
 
 def phase_bnn_timing(dev, name):
@@ -2792,6 +2832,323 @@ def phase_bnn_timing(dev, name):
 
     return _loop_timings(loops, {what["fit"]: 64, what["ensemble"]: 64, what["predict"]: 20},
                          run, name)
+
+
+# -- slice 7: the CLI, critical_ess, the demos, the tools and the graft entry --
+
+ISING_SWEEP = ["ising-sweep", "--size", "1024", "--t-min", "1.5", "--t-max", "3.5",
+               "--n-temps", "16", "--n-samples", "64"]          # the phase scan of phase 9
+FERRO_ANNEAL = ["anneal", "--size", "4096", "--steps", "1000"]   # 2 chains (--restarts 2)
+GLASS_ANNEAL = ["anneal", "--size", "4096", "--steps", "3000", "--spin-glass", "--restarts", "2"]
+WOLFF = dict(L=64, n_steps=4000)                                  # critical_ess's first Wolff row
+
+
+def launch_counts(got) -> dict:
+    return {k: n for k, n in zip(NAMES, got) if n}
+
+
+@contextlib.contextmanager
+def recorded(cls, name):
+    """Record (instance, result) of every call of ``cls.name`` inside."""
+    calls = []
+    orig = getattr(cls, name)
+
+    def wrapped(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        calls.append((self, out))
+        return out
+
+    setattr(cls, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
+
+
+def run_cli(argv, tail: int = 16) -> dict:
+    """cli.main(argv) on the card from zeroed counts: its output (the last
+    ``tail`` lines logged), wall and launches."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    out = buf.getvalue()
+    log(f"cli {' '.join(argv)}: exit {rc}, {wall:.3f} s, launches {launch_counts(got)}")
+    for line in out.strip().splitlines()[-tail:]:
+        log(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    return {"argv": argv, "wall_s": wall, "launches": got, "out": out}
+
+
+def _json_line(run) -> dict:
+    return json.loads(run["out"].strip().splitlines()[-1])
+
+
+def phase_cli(dev, workdir):
+    """The CLI at its users' sizes; returns each command's record."""
+    runs = {}
+    runs["version"] = v = run_cli(["version"])
+    if "tsu_tpu_torch" not in v["out"] or torch.cuda.get_device_name(0) not in v["out"]:
+        raise AssertionError(f"version: {v['out']}")
+
+    runs["sample"] = r = run_cli(["sample"])
+    res = _json_line(r)
+    if not (abs(res["sample_mean"]) < 0.3 and abs(res["sample_std"] - 1.0) < 0.5):
+        raise AssertionError(f"sample: {res}")
+
+    runs["ising-sweep"] = r = run_cli(ISING_SWEEP)
+    m = [float(ln.split("|M|=")[1].split()[0]) for ln in r["out"].splitlines() if "T=" in ln]
+    if len(m) != 16 or not (m[0] > 0.9 and m[-1] < 0.2):
+        raise AssertionError(f"ising-sweep: |M| {m}")
+    if r["launches"] != expect(0, 200 + 64 * 2):
+        raise AssertionError(f"ising-sweep: launches {r['launches']}")
+
+    runs["anneal"] = r = run_cli(FERRO_ANNEAL)
+    # Phase 9's bound for this anneal: 1,000 sweeps do not coarsen 4096^2 to
+    # the ground state (-2.0), which the CPU tests reach at 8^2.
+    if not _json_line(r)["energy_per_site"] < -1.85 or r["launches"] != expect(0, 1000):
+        raise AssertionError(f"anneal: {_json_line(r)}, launches {r['launches']}")
+
+    ck = os.path.join(workdir, "anneal_ck")
+    runs["anneal --spin-glass"] = r = run_cli(GLASS_ANNEAL + ["--checkpoint", ck])
+    glass = _json_line(r)
+    if not glass["energy_per_site"] < -1.3 or r["launches"] != expect(0, 0, 2 * 3000 * 2):
+        raise AssertionError(f"anneal --spin-glass: {glass}, launches {r['launches']}")
+    runs["anneal --spin-glass --resume"] = r = run_cli(GLASS_ANNEAL + ["--checkpoint", ck,
+                                                                       "--resume"])
+    if r["out"] != runs["anneal --spin-glass"]["out"] or any(r["launches"]):
+        raise AssertionError(f"anneal --resume: {r['out']} against {glass}")
+
+    runs["bnn"] = r = run_cli(["bnn"])
+    if r["out"].count("pred=") != 9 or any(r["launches"]):
+        raise AssertionError(f"bnn: {r['out']}")
+
+    with recorded(BenchmarkRunner, "run_all") as calls:
+        runs["bench"] = r = run_cli(["bench", "--quick", "--no-save"], tail=4)
+    (runner, out), = calls
+    r["k5_launches"] = check_quick_runner(runner, out, r["launches"])
+    r["total_time_s"] = out["total_time_s"]
+    for run in runs.values():
+        del run["out"]
+    return runs
+
+
+def phase_critical_ess(dev, name, wolff):
+    """critical_ess's Tc_L64 and T3.0_L4096 rows at the script's settings,
+    the Wolff row at L = 64 (``wolff``: the future of its chain), and the
+    4096^2 projection at K1's rate measured here."""
+    rows = []
+    for label, seed, L, T, settings in (
+            ("Tc_L64", fold_seed(critical_ess.SEED, 0), 64, critical_ess.T_C,
+             critical_ess.tc_settings(64, False)),
+            ("T3.0_L4096", fold_seed(critical_ess.SEED, 101), 4096, 3.0,
+             critical_ess.away_settings(False))):
+        thin = settings["thin"]
+        chunk = critical_ess.chunk_size(L, thin)
+        padded = (-(-max(settings["burnin"] // thin, 1) // chunk)
+                  + -(-settings["n_meas"] // chunk)) * chunk
+        reset_counts()
+        t0 = time.perf_counter()
+        row = critical_ess.run_row(seed, L, T, label=label, device=dev, log=log, **settings)
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"critical_ess {label}: tau_int_M {row['tau_int_M_sweeps']} sweeps, tau_int_E "
+            f"{row['tau_int_E_sweeps']}, ESS_M/s {row['ess_M_per_s']}, run_over_tau "
+            f"{row['run_over_tau']}, {row['sweeps_per_s_measured']} sweeps/s with observables, "
+            f"wall {wall:.3f} s, launches {launch_counts(got)}")
+        if got != expect(padded * thin):
+            raise AssertionError(f"critical_ess {label}: launches {got}, want K1 {padded * thin}")
+        rows.append({**row, "wall_s": wall, "k1_launches": got[0]})
+    taus = [r[k] for r in rows for k in ("tau_int_M_sweeps", "tau_int_E_sweeps")]
+    if not all(np.isfinite(t) and t > 0 for t in taus):
+        raise AssertionError(f"critical_ess: tau {taus}")
+    if not rows[1]["mean_abs_m"] < 0.01:
+        raise AssertionError(f"critical_ess T3.0_L4096: <|m|> {rows[1]['mean_abs_m']}")
+
+    t0 = time.perf_counter()
+    w = wolff.result()
+    wrow = critical_ess.wolff_row(w, WOLFF["L"], rows, log)
+    log(f"Wolff L={WOLFF['L']} x {WOLFF['n_steps']} steps (host, in a second process since "
+        f"phase 37; waited {time.perf_counter() - t0:.3f} s here)")
+    if not (np.isfinite(wrow["tau_int_M_wolff_steps"]) and wrow["tau_int_M_wolff_steps"] > 0):
+        raise AssertionError(f"Wolff row: {wrow}")
+
+    reset_counts()
+    rate = critical_ess.kernel_sweeps_per_s(dev)
+    got = counts()
+    tc = rows[0]
+    # One T_c size runs here: the fit's z is the literature's 2.17 through it.
+    A = tc["tau_int_M_sweeps"] / tc["L"] ** 2.17
+    proj = critical_ess.projection(A, 2.17, tc["L"], tc["tau_int_M_sweeps"],
+                                   rows[1]["sweeps_per_s_measured"], rate, name)
+    log(f"projection_4096_Tc (one T_c size, z = 2.17; K1's rate {rate:.6g} sweeps/s at 4096^2 "
+        f"bf16, launches {launch_counts(got)}): {json.dumps(proj)}")
+    return {"rows": rows, "wolff": wrow, "projection_4096_Tc": proj, "kernel_launches": got}
+
+
+def _save_figures(plt, workdir, prefix) -> int:
+    nums = plt.get_fignums()
+    for n in nums:
+        plt.figure(n).savefig(os.path.join(workdir, f"{prefix}_{n}.png"))
+    plt.close("all")
+    return len(nums)
+
+
+def phase_demos_tools(dev, workdir):
+    """The three demos on the card, the PT probe at its defaults and the
+    scaling projection's measured row; the demos' figures on Agg when
+    matplotlib is importable, else the ImportError a plot raises."""
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    plt = None
+    if has_mpl:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    out, figures = {}, 0
+
+    def timed(what, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"{what}: {wall:.3f} s, launches {launch_counts(got)}")
+        out[what] = {"wall_s": wall, "launches": got}
+        return res, got
+
+    cont, got = timed("demo_continuous_sampling",
+                      lambda: demos.demo_continuous_sampling(make_plots=has_mpl, device=dev))
+    cov = cont["tsu"]["coverage"]["n_modes_covered"]
+    out["demo_continuous_sampling"]["modes_covered"] = cov
+    if cov != 3 or any(got):
+        raise AssertionError(f"demo_continuous_sampling: {cov}/3 modes, launches {got}")
+    if has_mpl:
+        figures += _save_figures(plt, workdir, "continuous")
+
+    pt, got = timed("demo_phase_transition",
+                    lambda: demos.demo_phase_transition(make_plots=has_mpl, device=dev))
+    cold = pt["temperatures"] <= 2.0
+    gap = float(np.max(np.abs(pt["magnetization"][cold] - pt["onsager"][cold])))
+    out["demo_phase_transition"]["max_gap_to_onsager_T_le_2"] = gap
+    if not gap < 0.1 or got != expect(0, 200 + 48 * 2):
+        raise AssertionError(f"demo_phase_transition: gap {gap}, launches {got}")
+    if has_mpl:
+        figures += _save_figures(plt, workdir, "phase")
+
+    bayes, got = timed("demo_bayesian_inference",
+                       lambda: demos.demo_bayesian_inference(make_plots=has_mpl, device=dev))
+    err = float(np.max(np.abs(bayes["posterior_mean"] - bayes["theta_true"])))
+    out["demo_bayesian_inference"]["max_posterior_error"] = err
+    if not err < 0.1 or any(got):
+        raise AssertionError(f"demo_bayesian_inference: error {err}, launches {got}")
+    if has_mpl:
+        figures += _save_figures(plt, workdir, "bayes")
+
+    lines, got = timed("pt_spin_glass_probe", lambda: pt_spin_glass_probe.main([], log=log))
+    out["pt_spin_glass_probe"].update(ladder=lines[0], gs=lines[1])
+    log(f"pt_spin_glass_probe (256^2, 2000 iterations): e/site {lines[1]['energy_per_site']}, "
+        f"gap to -1.4015 {lines[1]['gap_vs_lit']}, {lines[0]['n_rungs']} rungs")
+    if got[NAMES.index("K5")] <= 0 or any(n for k, n in zip(NAMES, got) if k != "K5"):
+        raise AssertionError(f"pt_spin_glass_probe: launches {got}")
+
+    measured, got = timed("scaling_projection",
+                          lambda: scaling_projection.measure_sharded_sweep_time(device=dev))
+    lat = measured["copy_latency_s"]
+    proj = [scaling_projection.project(measured, n, scaling_projection.NVLINK_BYTES_PER_S, lat)
+            for n in (2, 4, 8)]
+    proj.append(scaling_projection.project(measured, 2, scaling_projection.NDR_BYTES_PER_S, lat))
+    out["scaling_projection"].update(measured_1chip=measured, projected=proj)
+    log(f"scaling_projection measured row: {json.dumps(measured)}; efficiency NVLink 2/4/8 "
+        f"{[p['projected_efficiency'] for p in proj[:3]]}, NDR 2 hosts "
+        f"{proj[3]['projected_efficiency']}")
+    n_sweeps = LATTICE_MATCHED["n_sweeps"] * (1 + LATTICE_MATCHED["n_iters"])
+    if got != expect(n_sweeps):
+        raise AssertionError(f"scaling_projection: launches {got}, want K1 {n_sweeps}")
+
+    if has_mpl:
+        branch = f"matplotlib importable: {figures} figures drawn on Agg into a temporary directory"
+    else:
+        try:
+            plot_phase_transition(pt["temperatures"], pt["magnetization"], show=False)
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            branch = f"no matplotlib: a plot call raised ImportError ({e})"
+        else:
+            raise AssertionError("a plot call without matplotlib did not raise")
+    log(f"plots: {branch}")
+    out["plots"] = branch
+    return out
+
+
+def phase_graft(dev):
+    """graft_entry: entry()'s fn once on the card, then dryrun_multichip(4)
+    on [cuda:0] * 4 (the visible cards, then cuda:0 repeated)."""
+    fn, args = graft_entry.entry()
+    reset_counts()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    got = counts()
+    if got != expect(1) or not set(torch.unique(res).tolist()) <= {-1.0, 1.0}:
+        raise AssertionError(f"entry: launches {got}, values {torch.unique(res)}")
+    devices = graft_entry.mesh_devices(4)
+    reset_counts()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got2 = counts()
+    log(f"graft entry: one sweep of 256^2, launches {launch_counts(got)}; dryrun_multichip(4) "
+        f"on {[str(d) for d in devices]}: {wall:.3f} s, launches {launch_counts(got2)}")
+    n = dict(zip(NAMES, got2))
+    if not (n["K1"] and n["K2"] and n["K3"]) or any(n[k] for k in ("K4", "K5", "K6", "K7", "K8")):
+        raise AssertionError(f"dryrun_multichip: launches {got2}")
+    return {"entry_launches": got, "dryrun_devices": [str(d) for d in devices],
+            "dryrun_wall_s": wall, "dryrun_launches": got2}
+
+
+def run_slice7(dev, name):
+    """Phases 37-40; returns the launches of each of their paths."""
+    t_slice7 = time.perf_counter()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=spawn) as pool, \
+            tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
+        # critical_ess's Wolff row is host numpy only (~1 min): it runs in a
+        # second process beside phases 37 and 38.
+        wolff = pool.submit(wolff_chain, critical_ess.SEED, WOLFF["L"], critical_ess.T_C,
+                            WOLFF["n_steps"])
+        cli_runs = phase_cli(dev, workdir)
+        log("phase 37: the CLI ran at its users' sizes through K2, K4 and K5; the quick runner "
+            "ran every row of its four suites")
+
+        ess = phase_critical_ess(dev, name, wolff)
+        log("phase 38: critical_ess's rows ran K1 at the script's settings; the projection uses "
+            "the card's K1 rate")
+
+        demo_tools = phase_demos_tools(dev, workdir)
+    log("phase 39: the demos, the PT probe and the scaling projection ran on the card")
+
+    graft = phase_graft(dev)
+    log("phase 40: the graft entry ran K1; dryrun_multichip(4) ran K1's shard mode, K3 and K2")
+    slice7_s = time.perf_counter() - t_slice7
+    log(f"phases 37-40 added {slice7_s:.1f} s")
+    log("slice 7: " + json.dumps({"cli": cli_runs, "critical_ess": ess,
+                                  "demos_tools": demo_tools, "graft": graft,
+                                  "seconds": slice7_s, "card": name}, default=float))
+    slice7 = {f"cli {k}": r["launches"] for k, r in cli_runs.items()}
+    slice7.update({f"critical_ess {r['label']}": expect(r["k1_launches"]) for r in ess["rows"]})
+    slice7["critical_ess kernel rate"] = ess["kernel_launches"]
+    slice7.update({k: v["launches"] for k, v in demo_tools.items() if isinstance(v, dict)})
+    slice7["graft entry"] = graft["entry_launches"]
+    slice7["graft dryrun_multichip(4)"] = graft["dryrun_launches"]
+    return slice7
 
 
 def main() -> int:
@@ -2906,8 +3263,6 @@ def main() -> int:
     sparse = phase_maxcut_sparse(dev)
     log("phase 27: maxcut_sparse reached the native greedy bound")
 
-    import tempfile
-
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
         phase_resume(dev, workdir)
     log("phase 28: four resumed runs == their uninterrupted runs on the card")
@@ -2944,17 +3299,24 @@ def main() -> int:
     log("phase 34: the ML suite at full size is in its bands on its graphs; bnn_dp split == one "
         "device")
 
-    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
-        runner = phase_runner(dev, workdir)
-    log("phase 35: the quick runner ran every row of its four suites; lattice_matched ran K1")
+    matched = phase_lattice_matched(dev)
+    log("phase 35: lattice_matched ran K1 (the quick runner's checks run in phase 37, on the "
+        "CLI's bench --quick)")
 
     timing6 = phase_bnn_timing(dev, name)
     log("phase 36: timed")
     slice6_s = time.perf_counter() - t_slice6
     log(f"phases 33-36 added {slice6_s:.1f} s")
     log("slice 6: " + json.dumps({"exact_max_abs_diff": bnn_exact, "ml_suite": ml_suite,
-                                  "runner": runner, "ms_per_step": timing6,
+                                  "lattice_matched": matched, "ms_per_step": timing6,
                                   "seconds": slice6_s, "card": name}, default=float))
+
+    slice7 = run_slice7(dev, name)
+
+    def slice7_launches(k):
+        """This slice's paths that launched kernel k, with their launches."""
+        i = NAMES.index(k)
+        return {path: got[i] for path, got in slice7.items() if got[i]}
 
     R, C2 = MAIN_SHAPE[0], MAIN_SHAPE[1] // 2
     site = R * C2                                     # compact sites of one 4096^2 plane
@@ -3005,10 +3367,11 @@ def main() -> int:
               max(err, err1s), ms, plain_ms, 3 * 2 * site + 9 * 4, graph_ms=graph1_ms,
               shard_launches=launches1s, shard_ms=st["K1 shard"],
               shard_plain_ms=st["K1 shard plain"],
-              shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4)),
+              shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4),
+              slice7_launches=slice7_launches("K1")),
         entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
               err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4, graph_ms=graph2_ms,
-              replica_sharded_launches=launches2s),
+              replica_sharded_launches=launches2s, slice7_launches=slice7_launches("K2")),
         entry("halfsweep", "tsu_tpu_torch/csrc/checkerboard_halfsweep.cu",
               "tsu_tpu/ops/checkerboard_pallas.py:79", launches3, err3, st["K3"], st["K3 plain"],
               2 * 4 * site + 2 * 4 * MAIN_SHAPE[1] // 2, band_sites=n_band3,
@@ -3023,7 +3386,8 @@ def main() -> int:
               runs_ms={k[5:]: st[k] for k in st if k.startswith("this ")},
               previous_runs_ms={k[6:]: st[k] for k in st if k.startswith("first ")},
               host_ms_per_sharded_sweep={"rows 4 (K1)": st["host 4x1"],
-                                         "2 x 2 (K3)": st["host 2x2"]}),
+                                         "2 x 2 (K3)": st["host 2x2"]},
+              slice7_launches=slice7_launches("K3")),
         entry("bond_halfsweep", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:71", launches4,
               err4, bond_times["K4 discrete"][0], bond_times["K4 discrete"][2],
               5 * site + 9 * 4,
@@ -3033,14 +3397,16 @@ def main() -> int:
               continuous_band_sites=n_band, continuous_band_differ=n_differ,
               ms_4096x4094=bond_times["K4 discrete 4096x4094"][0],
               plain_ms_4096x4094=bond_times["K4 discrete 4096x4094"][2],
-              bound_ms_4096x4094=bound_ms(5 * ragged_site + 9 * 4)),
+              bound_ms_4096x4094=bound_ms(5 * ragged_site + 9 * 4),
+              slice7_launches=slice7_launches("K4")),
         entry("bond_halfsweep_batched", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:320",
               launches5, err5, bond_times["K5 discrete"][0], bond_times["K5 discrete"][2],
               4 * ladder_site + PT_SHAPE[0] * PT_SHAPE[1] // 2 + LADDER_BATCH * 11 * 4,
               ms_64x256x256=bond_times["K5 discrete 64 x 256^2"][0],
               plain_ms_64x256x256=bond_times["K5 discrete 64 x 256^2"][2],
               bound_ms_64x256x256=bound_ms(4 * pt_site + PT_SHAPE[0] * PT_SHAPE[1] // 2
-                                           + PT_RUNGS * 11 * 4)),
+                                           + PT_RUNGS * 11 * 4),
+              slice7_launches=slice7_launches("K5")),
         entry("resident_sweeps", resident, "tsu_tpu/ops/checkerboard_resident.py:56", launches6,
               err6, rt["K6"], rt["K6 plain"], (4 * 2 * site + 9 * 4) / S, **resident_extra("K6")),
         entry("resident_anneal", resident, "tsu_tpu/ops/checkerboard_resident.py:219", launches7,

@@ -18,10 +18,12 @@ reference's sampler API (``GaussianSampler``, ``sample_gaussian``, ...).
 Bayesian neural networks train by SVI and anchored ensembles on graphed
 loops (``models/ml.py``), beside the probabilistic layers of the API, the
 hardware models, profiling hooks and the benchmark suites
-(``tsu_tpu_torch.benchmarks``). The namespace carries every name of
-``tsu_tpu`` but its plot functions. Entry points run on
-the card unless the caller passes ``device="cpu"``, which runs the plain
-PyTorch versions.
+(``tsu_tpu_torch.benchmarks``). The command line (``cli``), the demos
+(``demos``), the plots (``visualization``: matplotlib and plotly are
+imported only when a plot is drawn), the tools of ``tsu_tpu_torch.tools``
+and the graft entry (``graft_entry``) sit on top. The namespace carries
+every name of ``tsu_tpu``. Entry points run on the card unless the caller
+passes ``device="cpu"``, which runs the plain PyTorch versions.
 """
 
 from tsu_tpu_torch.api import (
@@ -99,9 +101,21 @@ from tsu_tpu_torch.samplers import (
     sample_mala,
     sample_nuts,
 )
+from tsu_tpu_torch.visualization import (
+    plot_active_learning_curve,
+    plot_energy_landscape_2d,
+    plot_interactive_energy_landscape,
+    plot_ising_state,
+    plot_phase_transition,
+    plot_predictions_with_uncertainty,
+    plot_sampling_diagnostics,
+    plot_uncertainty_vs_error,
+)
 
 # Alias of the reference's namespace.
 TSU = ThermalSamplingUnit
+
+__version__ = "0.5.0"
 
 __all__ = [
     "AnchoredEnsembleRegressor",
@@ -158,6 +172,14 @@ __all__ = [
     "optimize",
     "parallel_tempering_bonds",
     "plan_lattice_mesh",
+    "plot_active_learning_curve",
+    "plot_energy_landscape_2d",
+    "plot_interactive_energy_landscape",
+    "plot_ising_state",
+    "plot_phase_transition",
+    "plot_predictions_with_uncertainty",
+    "plot_sampling_diagnostics",
+    "plot_uncertainty_vs_error",
     "pt_ground_state_search",
     "quick_demo",
     "resident_anneal",

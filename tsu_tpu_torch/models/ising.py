@@ -10,9 +10,9 @@ random-bond lattice or a ±J spin glass); an odd grid, or an even one given a
 coupling between sites that are not lattice neighbours, falls back to the
 dense engine (at most 4,096 spins). Observables match the JAX package: M =
 <sum s>/N, C = Var(E)/(T^2 N), chi = Var(m_per_spin) * N / T; energies are
-taken in float64 on the model's device. Features of the JAX classes that
-later slices of the port bring raise ``NotImplementedError`` naming the
-slice (see ROADMAP.md).
+taken in float64 on the model's device. The plots (``visualize``) need
+matplotlib and raise ``ImportError`` without it; ``compute_domains`` labels
+a state on the host with ``scipy.ndimage``.
 """
 
 from __future__ import annotations
@@ -42,11 +42,6 @@ from tsu_tpu_torch.samplers.annealing import (
 from tsu_tpu_torch.samplers.gibbs import ColourPlan, dense_gibbs_sample
 
 DENSE_LIMIT = 4096          # spins of the dense fall-back of a grid
-
-
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(
-        f"{what} is not ported to tsu_tpu_torch yet ({slice_} of ROADMAP.md)")
 
 
 class IsingModel:
@@ -184,7 +179,16 @@ class IsingChain(IsingModel):
             self.set_coupling(i, i + 1, J)
 
     def visualize(self, state, title: str = "Ising Chain"):
-        raise _not_ported("IsingChain.visualize", "slice 7")
+        """Render the chain as coloured squares; returns a Figure."""
+        from tsu_tpu_torch.visualization import pyplot
+
+        _, plt = pyplot()
+        fig, ax = plt.subplots(figsize=(max(6, self.n_spins * 0.3), 1.5))
+        ax.imshow(np.asarray(state)[None, :], cmap="coolwarm", vmin=-1, vmax=1,
+                  aspect="auto")
+        ax.set_title(title)
+        ax.set_yticks([])
+        return fig
 
 
 class IsingGrid(IsingModel):
@@ -439,6 +443,25 @@ class IsingGrid(IsingModel):
             device=self.device)
         return best.reshape(-1).cpu().numpy(), e
 
+    def visualize(self, state, title: str = "Ising Grid", show_colorbar: bool = True):
+        """Render a configuration as an image; returns a Figure."""
+        from tsu_tpu_torch.visualization import pyplot
+
+        _, plt = pyplot()
+        fig, ax = plt.subplots(figsize=(5, 5))
+        im = ax.imshow(np.asarray(state).reshape(self.shape), cmap="coolwarm", vmin=-1, vmax=1)
+        ax.set_title(title)
+        if show_colorbar:
+            fig.colorbar(im, ax=ax)
+        return fig
+
+    def compute_domains(self, state) -> int:
+        """Connected domains of aligned spins (4-connectivity, open edges),
+        counted on the host."""
+        from scipy import ndimage
+
+        grid = np.asarray(state).reshape(self.shape)
+        return int(sum(ndimage.label(grid == val)[1] for val in (-1.0, 1.0)))
 
 
 def demonstrate_phase_transition(sizes: Sequence[int] = (8, 16, 32),
