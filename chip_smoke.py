@@ -224,10 +224,28 @@ Phases, each of which raises on failure:
     directory, without it a plot call's ImportError;
 40. graft_entry: entry()'s sweep of 256^2 once (one K1 launch), then
     dryrun_multichip(4) on the visible card and cuda:0 repeated (K1's shard
-    mode, K3, K2 and a data-parallel BNN step).
+    mode, K3, K2 and a data-parallel BNN step);
+41. the multi-process runtime under ``python -m torch.distributed.run
+    --standalone``, the ranks sharing the one card over gloo (the backend
+    rule; with a card a rank, NCCL), each rank running
+    tsu_tpu_torch.tools.multiprocess_check: on 4 ranks
+    the README quick start (4096^2, T = 2.269, the default IsingConfig, 4
+    samples) on 4 row shards (560 K1 shard-mode launches in all) and on
+    2 x 2 (1,120 K3), replica-sharded tempering of 64 rungs x 256^2 over
+    300 rounds (1,200 K2) and annealed_smc_sharded at 16,384 x 10 (and 10
+    steps of it with rank 0's host launch calls a step counted under the
+    profiler); on 2 ranks the quick start on 4 row
+    shards, two a rank, and the same run checkpointed every 2 samples and
+    stopped after its first snapshot, then resumed in this process;
+    tsu_tpu_torch.tools.pod_scaling at its sizes on 4 ranks. Every rank's
+    observables (rank 0's final planes), rungs, swaps, particles, weights
+    and log Z == the one-process run's at the same seed, bit for bit, and
+    the resumed run == the uninterrupted one; each run's wall, host ms a
+    sweep, bytes and messages a halo exchange and launches per kernel;
+    a rank that fails or a torchrun past its timeout fails the phase.
 
-A "slice 4:", a "slice 5:", a "slice 6:" and a "slice 7:" JSON log line
-carry those phases' numbers.
+A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:" and a "slice 8:"
+JSON log line carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
@@ -236,7 +254,8 @@ and their CUDA counterparts; K1 and K2 also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
 grid-stride body's time, the barrier cost and the grid; K1-K5 the launches
-of each slice-7 path that ran them)
+of each slice-7 path that ran them, K1-K3 those of each slice-8 path,
+summed over its ranks)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
@@ -249,6 +268,7 @@ import io
 import json
 import multiprocessing
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -1662,8 +1682,8 @@ def column_halo_views(run):
     handed out)."""
     real, views = lattice._halo_exchange_cols, [0]
 
-    def watched(planes, periodic):
-        lefts, rights = real(planes, periodic)
+    def watched(planes, periodic, *grid):
+        lefts, rights = real(planes, periodic, *grid)
         m = len(planes[0])
         for i, row in enumerate(planes):
             for j, p in enumerate(row):
@@ -3151,6 +3171,183 @@ def run_slice7(dev, name):
     return slice7
 
 
+# -- slice 8: the multi-process runtime -----------------------------------------
+
+QUICK_START = dict(kind="sample", shape=list(MAIN_SHAPE), seed=41, temperature=2.269,
+                   n_samples=4, n_burnin=100, n_sweeps=10)    # the default IsingConfig
+TORCHRUN_TIMEOUT_S = 240                                      # each torchrun of phase 41
+
+
+def torchrun(n: int, argv: list, what: str) -> float:
+    """``python -m torch.distributed.run --standalone --nproc-per-node n``
+    on ``argv`` from the repository root, rank r on cuda:r mod the cards
+    (one card: the ranks share it over gloo, by the backend rule; a card a
+    rank: NCCL); raises if a rank fails, or stops the ranks and raises if
+    the run outlasts TORCHRUN_TIMEOUT_S. Returns its wall."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(n), *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out = proc.communicate(timeout=TORCHRUN_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        proc.terminate()                  # torchrun stops its ranks on SIGTERM
+        try:
+            proc.wait(30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: torchrun exited {proc.returncode}:\n{out[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def run_ranks(n: int, cases: list, workdir: str, tag: str) -> tuple:
+    """The check tool's cases on n ranks; returns (each rank's results,
+    torchrun's wall)."""
+    out = os.path.join(workdir, tag)
+    spec = os.path.join(workdir, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump(cases, f)
+    wall = torchrun(n, ["-m", "tsu_tpu_torch.tools.multiprocess_check", out, spec],
+                    f"{n} ranks: {[c['name'] for c in cases]}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(n)], wall
+
+
+def _cpu(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def check_sample(what, results, ref):
+    """Every rank's observables == the one-process run's; rank 0's final
+    planes too, the others' None."""
+    for r, res in enumerate(results):
+        got = res[what]["out"]
+        if not (torch.equal(got["magnetization"], ref["magnetization"])
+                and torch.equal(got["energy"], ref["energy"])):
+            raise AssertionError(f"{what}: rank {r}'s observables != the one-process run's")
+        planes = got["final_planes"]
+        if r == 0 and not all(torch.equal(_cpu(a), _cpu(b))
+                              for a, b in zip(planes, ref["final_planes"])):
+            raise AssertionError(f"{what}: rank 0's final planes != the one-process run's")
+        if r and planes is not None:
+            raise AssertionError(f"{what}: rank {r} returned final planes")
+
+
+def phase_multiprocess(dev, workdir):
+    """Phase 41; returns (launches of K1, K2 and K3 summed over the ranks
+    per path, the slice's numbers)."""
+    from tsu_tpu_torch.tools.multiprocess_check import run_case
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    snapshot = os.path.join(workdir, "two_ranks.pt")
+    rows4 = dict(QUICK_START, name="quick start, 4 ranks x 1 row shard", mesh={"rows": 4})
+    grid22 = dict(QUICK_START, name="quick start, 4 ranks in 2 x 2",
+                  mesh={"rows": 2, "cols": 2})
+    pt = dict(name=f"replica-sharded tempering {PT_RUNGS} x {PT_SHAPE}, 4 ranks",
+              kind="tempering", shape=list(PT_SHAPE), seed=0, mesh={"replica": 4},
+              temperatures=[1.8, 3.0, PT_RUNGS], n_samples=200, swap_interval=10, n_burnin=100)
+    smc = dict(name=f"annealed_smc_sharded {SMC_SIZE[0]} x {SMC_SIZE[1]}, 4 ranks", kind="smc",
+               particles=list(SMC_SIZE), seed=8, mesh={"chains": 4}, n_steps=50)
+    # Rank 0 counts its host launch calls under the profiler over a shorter
+    # run (the profiler slows an eager loop several times over).
+    smc_counted = dict(smc, name=smc["name"] + ", 10 steps under the profiler", n_steps=10,
+                       count_host_launches=True)
+    two = dict(QUICK_START, name="quick start, 2 ranks x 2 row shards",
+               mesh={"rows": 4, "ranks": [0, 0, 1, 1]})
+    stop = dict(two, name="quick start checkpointed on 2 ranks, stopped after 2 samples",
+                checkpoint={"path": snapshot, "every": 2, "stop_after_first": True})
+    four, wall4 = run_ranks(4, [rows4, grid22, pt, smc, smc_counted], workdir, "four")
+    pairs, wall2 = run_ranks(2, [two, stop], workdir, "two")
+    pod_dir = os.path.join(workdir, "pod_scaling")
+    wall_pod = torchrun(4, ["-m", "tsu_tpu_torch.tools.pod_scaling", pod_dir], "pod_scaling")
+
+    refs = {c["name"]: run_case(c, dev)["out"] for c in (rows4, grid22, pt, smc)}
+    check_sample(rows4["name"], four, refs[rows4["name"]])
+    check_sample(grid22["name"], four, refs[grid22["name"]])
+    check_sample(two["name"], pairs, refs[rows4["name"]])
+    for r, res in enumerate(four):
+        got, ref = res[pt["name"]]["out"], refs[pt["name"]]
+        if not (all(np.array_equal(got[k], ref[k]) for k in
+                    ("magnetization", "energy", "rungs", "final_rungs"))
+                and got["swap_accepts"] == ref["swap_accepts"]):
+            raise AssertionError(f"replica-sharded tempering: rank {r} != the one-process run")
+        got, ref = res[smc["name"]]["out"], refs[smc["name"]]
+        if not (all(np.array_equal(got[k], ref[k]) for k in
+                    ("particles", "log_weights", "ess_history")) and got["log_Z"] == ref["log_Z"]):
+            raise AssertionError(f"annealed_smc_sharded: rank {r} != annealed_smc_sharded in one "
+                                 "process")
+    log("phase 41: on every rank the quick start on 4 x 1, 2 x 2 and 2 ranks x 2 row shards "
+        "(observables; rank 0's final planes), the tempering (observables, rungs, swaps) and the "
+        "SMC (particles, log-weights, ESS, log Z) == the one-process runs bit for bit")
+    if not all(res[stop["name"]]["out"] == "stopped" for res in pairs):
+        raise AssertionError("the checkpointed two-rank run did not stop after its snapshot")
+    resumed = run_case(dict(two, checkpoint={"path": snapshot, "every": 2, "resume": True}),
+                       dev)["out"]
+    check_sample("resumed", [{"resumed": {"out": resumed}}], refs[rows4["name"]])
+    log("phase 41: a run checkpointed on 2 ranks and resumed in one process == the "
+        "uninterrupted run")
+
+    sweeps = QUICK_START["n_burnin"] + QUICK_START["n_samples"] * QUICK_START["n_sweeps"]
+    want = {rows4["name"]: (4 * sweeps, 0, 0), grid22["name"]: (0, 0, 4 * 2 * sweeps),
+            pt["name"]: (0, 4 * 300, 0), smc["name"]: (0, 0, 0), smc_counted["name"]: (0, 0, 0),
+            two["name"]: (4 * sweeps, 0, 0),
+            stop["name"]: (4 * (QUICK_START["n_burnin"] + 2 * QUICK_START["n_sweeps"]), 0, 0)}
+    launches, numbers = {}, {}
+    for results, cases in ((four, (rows4, grid22, pt, smc, smc_counted)), (pairs, (two, stop))):
+        for c in cases:
+            runs = [res[c["name"]] for res in results]
+            got = tuple(sum(r["launches"][k] for r in runs) for k in ("K1", "K2", "K3"))
+            launches[c["name"]] = got
+            if got != want[c["name"]]:
+                raise AssertionError(f"{c['name']}: launches (K1, K2, K3) {got}, want "
+                                     f"{want[c['name']]}")
+            ex = [r["exchange"] for r in runs]
+            wall = max(r["seconds"] for r in runs)
+            numbers[c["name"]] = {
+                "wall_s": wall, "launches_K1_K2_K3": got,
+                "exchanges_per_rank": [e["calls"] for e in ex],
+                "bytes_sent_per_rank": [e["bytes"] for e in ex],
+                # Each rank's exchanges by size: calls of (messages, bytes sent).
+                "exchanges_by_size_per_rank": [
+                    {f"{m} messages, {b} B": n for (m, b), n in sorted(e["sizes"].items())}
+                    for e in ex]}
+            if c["kind"] == "sample":
+                done = sweeps if "checkpoint" not in c else sweeps - 2 * QUICK_START["n_sweeps"]
+                numbers[c["name"]]["wall_ms_per_sweep_setup_included"] = wall * 1e3 / done
+            if c is smc_counted:
+                numbers[c["name"]]["host_launches_per_step_rank0"] = (
+                    runs[0]["out"]["host_launches"] / c["n_steps"])
+            log(f"phase 41: {c['name']}: wall {wall:.3f} s (the slowest rank); "
+                f"launches (K1, K2, K3) summed over the ranks {got}; "
+                + ", ".join(f"{k} {v}" for k, v in numbers[c["name"]].items()
+                            if k not in ("wall_s", "launches_K1_K2_K3")))
+    shared = torch.cuda.device_count() < 4            # the backend rule's choice
+    backend = "gloo" if shared else "nccl"
+    with open(os.path.join(pod_dir, f"scaling_{backend}4_h1.json")) as f:
+        pod = json.load(f)
+    if ((pod["topology"]["n_processes"], pod["topology"]["n_hosts"], pod["topology"]["backend"])
+            != (4, 1, backend) or (pod["lattice"]["efficiency"] is None) != shared):
+        raise AssertionError(f"pod_scaling's topology {pod['topology']}")
+    lat = pod["lattice"]
+    log(f"phase 41: pod_scaling on 4 ranks over {backend} ({wall_pod:.1f} s with torchrun): "
+        f"topology {pod['topology']}; chains {pod['chains']}; lattice {lat}")
+    per_sweep = {k: lat[k]["time_s"] * 1e3 / lat["n_sweeps"] for k in ("1_device", "all_devices")}
+    log(f"phase 41: host ms per sharded sweep of a 1024 x 4096 shard a rank, between barriers "
+        f"({lat['n_sweeps']} sweeps a call): 1 rank {per_sweep['1_device']:.6f}, 4 ranks over "
+        f"{backend} {per_sweep['all_devices']:.6f}")
+    numbers.update(torchrun_wall_s={"4 ranks": wall4, "2 ranks": wall2, "pod_scaling": wall_pod},
+                   pod_scaling=pod, host_ms_per_sweep_1024x4096_shard=per_sweep,
+                   seconds=time.perf_counter() - t_phase)
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3313,6 +3510,19 @@ def main() -> int:
 
     slice7 = run_slice7(dev, name)
 
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
+        slice8, numbers8 = phase_multiprocess(dev, workdir)
+    log("phase 41: under torchrun, 4 ranks (and 2) ran the quick start "
+        "(K1's shard mode, K3), replica-sharded tempering (K2), the sharded SMC and "
+        "pod_scaling, each == the one-process run")
+    log(f"phase 41 added {numbers8['seconds']:.1f} s")
+    log("slice 8: " + json.dumps({**numbers8, "card": name}, default=float))
+
+    def slice8_launches(k):
+        """Slice 8's paths that launched kernel k, summed over their ranks."""
+        i = ("K1", "K2", "K3").index(k)
+        return {path: got[i] for path, got in slice8.items() if got[i]}
+
     def slice7_launches(k):
         """This slice's paths that launched kernel k, with their launches."""
         i = NAMES.index(k)
@@ -3368,10 +3578,11 @@ def main() -> int:
               shard_launches=launches1s, shard_ms=st["K1 shard"],
               shard_plain_ms=st["K1 shard plain"],
               shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4),
-              slice7_launches=slice7_launches("K1")),
+              slice7_launches=slice7_launches("K1"), slice8_launches=slice8_launches("K1")),
         entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
               err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4, graph_ms=graph2_ms,
-              replica_sharded_launches=launches2s, slice7_launches=slice7_launches("K2")),
+              replica_sharded_launches=launches2s, slice7_launches=slice7_launches("K2"),
+              slice8_launches=slice8_launches("K2")),
         entry("halfsweep", "tsu_tpu_torch/csrc/checkerboard_halfsweep.cu",
               "tsu_tpu/ops/checkerboard_pallas.py:79", launches3, err3, st["K3"], st["K3 plain"],
               2 * 4 * site + 2 * 4 * MAIN_SHAPE[1] // 2, band_sites=n_band3,
@@ -3387,7 +3598,7 @@ def main() -> int:
               previous_runs_ms={k[6:]: st[k] for k in st if k.startswith("first ")},
               host_ms_per_sharded_sweep={"rows 4 (K1)": st["host 4x1"],
                                          "2 x 2 (K3)": st["host 2x2"]},
-              slice7_launches=slice7_launches("K3")),
+              slice7_launches=slice7_launches("K3"), slice8_launches=slice8_launches("K3")),
         entry("bond_halfsweep", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:71", launches4,
               err4, bond_times["K4 discrete"][0], bond_times["K4 discrete"][2],
               5 * site + 9 * 4,

@@ -36,7 +36,6 @@ from tsu_tpu_torch.ops.checkerboard import (  # noqa: E402
 from tsu_tpu_torch.parallel import (  # noqa: E402
     make_mesh,
     mesh_info,
-    multihost_initialize,
     parallel_tempering_replica_sharded,
     plan_lattice_mesh,
     sharded_checkerboard_sweeps,
@@ -75,7 +74,8 @@ def _exact_4x4(T_):
 def test_make_mesh_shapes_and_repeated_devices():
     mesh = make_mesh(rows=4, devices=CPU4)
     assert mesh.shape == {"replica": 1, "chains": 1, "row": 4, "col": 1}
-    assert mesh_info(mesh) == {"axes": mesh.shape, "n_devices": 4, "platform": "cpu"}
+    assert mesh_info(mesh) == {"axes": mesh.shape, "n_devices": 4, "platform": "cpu",
+                               "n_processes": 1, "n_hosts": 1, "backend": None}
     mesh = make_mesh(replica=2, rows=2, cols=2, devices=["cpu"] * 8)
     assert mesh.devices.shape == (2, 1, 2, 2)
     assert all(d == torch.device("cpu") for d in mesh.devices.flat)
@@ -124,11 +124,6 @@ def test_plan_replica_chains_budget():
     assert mesh.shape["row"] == 2 and mesh.shape["col"] == 1
     with pytest.raises(ValueError):
         plan_lattice_mesh(8, (64, 64), replica=3, devices=["cpu"] * 8)
-
-
-def test_multihost_initialize_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        multihost_initialize()
 
 
 # -- sharded sweeps against the JAX package --------------------------------

@@ -5,7 +5,8 @@ Counterpart of ``tsu_tpu/benchmarks/runner.py``: runs the four suites
 prints a summary, writes ``benchmark_results.json`` and
 ``benchmark_report.txt`` in the reference's layout, and records the
 topology of the run (the torch devices, the torch and CUDA versions, the
-card's name and power limit). ``routes`` keeps each suite's row routes,
+card's name and power limit, and the multi-process runtime's processes,
+hosts and process-group backend). ``routes`` keeps each suite's row routes,
 printed beside the rows.
 
 CLI: python -m tsu_tpu_torch.benchmarks.runner [--quick] [--seed N]
@@ -37,6 +38,7 @@ class BenchmarkRunner:
         self.routes = {}
 
     def _topology(self) -> dict:
+        from tsu_tpu_torch.parallel import distributed
         from tsu_tpu_torch.tools.timing import card
 
         on_card = self.device.type == "cuda"
@@ -45,7 +47,9 @@ class BenchmarkRunner:
             "n_devices": torch.cuda.device_count() if on_card else 1,
             "device_kind": torch.cuda.get_device_name(self.device) if on_card else "cpu",
             "card": card() if on_card else None,
-            "n_hosts": 1,
+            "n_hosts": distributed.n_hosts(),
+            "n_processes": distributed.world_size(),
+            "dist_backend": distributed.backend(),
             "python": platform.python_version(),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,

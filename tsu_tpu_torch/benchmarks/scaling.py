@@ -16,6 +16,12 @@ n_devices):
 A mesh may repeat a device (``[cuda:0] * 4``): its shards then share one
 card, which checks the mechanics but measures no scaling, so efficiency is
 null there, as on the reference's virtual mesh of one host.
+
+After ``parallel.multihost_initialize`` the chains and lattice rows run
+over the global mesh, one shard per rank, each row timed between barriers
+(every rank calls them; ``tools/pod_scaling.py`` runs them under
+``torchrun``). Ranks that share a card (one host, one device) count as a
+repeated device: no efficiency is claimed on one card.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from tsu_tpu_torch.config import resolve_device
 from tsu_tpu_torch.energy import Quadratic
+from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.parallel.mesh import make_mesh
 from tsu_tpu_torch.samplers.langevin import sample_langevin
 
@@ -47,8 +54,25 @@ def _sync(devs):
 
 def _shared_host(devs) -> bool:
     """True when the mesh repeats a device: its shards share one card (or
-    the CPU), so n_devices x one device is no ideal."""
+    the CPU), so n_devices x one device is no ideal. Across processes
+    ``devs`` are the ranks' (host, device) placements."""
     return len(set(devs)) < len(devs)
+
+
+def _timed_over_ranks(n_active: int, run) -> float:
+    """Seconds of ``run(i)`` (a warm-up i = 0, then the timed i = 1) on the
+    first ``n_active`` ranks, the others waiting; every rank meets before
+    and after each call."""
+    active = distributed.rank() < n_active
+    distributed.barrier()
+    if active:
+        run(0)
+    distributed.barrier()
+    t0 = time.perf_counter()
+    if active:
+        run(1)
+    distributed.barrier()
+    return time.perf_counter() - t0
 
 
 def _efficiency(single_tput: float, all_tput: float, devs) -> dict:
@@ -78,7 +102,23 @@ def _efficiency(single_tput: float, all_tput: float, devs) -> dict:
 def measure_chains_scaling(dim: int = 10, chains_per_device: int = 1024, n_samples: int = 50,
                            n_steps: int = 10, seed: int = 0, devices=None) -> dict:
     """Langevin samples/s: 1 device vs all devices, a shard of chains per
-    device (each its own seed)."""
+    device (each its own seed). After ``multihost_initialize`` (and
+    ``devices`` None): one shard per rank on its device, 1 rank vs all."""
+    rt = distributed.runtime()
+    if rt is not None and devices is None:
+        results = {}
+        for label, n in (("1_device", 1), ("all_devices", rt.world_size)):
+            def run(i):
+                sample_langevin(seed + i * n + rt.rank, np.zeros((chains_per_device, dim)),
+                                energy_fn=Quadratic(0.0, 1.0), n_samples=n_samples, dt=0.05,
+                                n_burnin=50, n_steps=n_steps, device=rt.device)
+                _sync([rt.device])
+            dt = _timed_over_ranks(n, run)
+            results[label] = {"n_devices": n, "samples_per_s":
+                              chains_per_device * n * n_samples / dt, "time_s": dt}
+        results.update(_efficiency(results["1_device"]["samples_per_s"],
+                                   results["all_devices"]["samples_per_s"], rt.placements))
+        return results
     devices = _devices(devices)
     results = {}
     for label, devs in (("1_device", devices[:1]), ("all_devices", devices)):
@@ -165,10 +205,34 @@ def measure_lattice_scaling(rows_per_device: int = 1024, cols: int = 4096,
                             devices=None) -> dict:
     """Row-sharded lattice sweeps/s: 1 device vs all (halo-exchange bound):
     bf16 planes from all-ones at T = 2.269, the fused sweep in shard mode
-    (K1 on the card), 1,000 sweeps a call on the card (200 on the CPU)."""
+    (K1 on the card), 1,000 sweeps a call on the card (200 on the CPU).
+    After ``multihost_initialize`` (and ``devices`` None): rank 0 alone vs
+    the global mesh, one row shard per rank."""
     from tsu_tpu_torch.ops.checkerboard import split_checkerboard
     from tsu_tpu_torch.parallel.lattice import sharded_checkerboard_sweeps
 
+    rt = distributed.runtime()
+    if rt is not None and devices is None:
+        on_card = rt.device.type == "cuda"
+        if n_sweeps is None:
+            n_sweeps = 1000 if on_card else 200
+        results = {"kernel": "fused" if on_card else "plain", "n_sweeps": n_sweeps}
+        for label, n in (("1_device", 1), ("all_devices", rt.world_size)):
+            mesh = make_mesh(rows=n, ranks=range(n))
+            R = rows_per_device * n
+            red, black = split_checkerboard(torch.ones((R, cols), dtype=torch.bfloat16,
+                                                       device=rt.device))
+
+            def run(i):
+                sharded_checkerboard_sweeps(mesh, seed + i, red, black, 2.269, n_sweeps,
+                                            periodic=True)
+                _sync([rt.device])
+            dt = _timed_over_ranks(n, run)
+            results[label] = {"n_devices": n, "flips_per_s": R * cols * n_sweeps / dt,
+                              "time_s": dt}
+        results.update(_efficiency(results["1_device"]["flips_per_s"],
+                                   results["all_devices"]["flips_per_s"], rt.placements))
+        return results
     devices = _devices(devices)
     on_card = devices[0].type == "cuda"
     if n_sweeps is None:

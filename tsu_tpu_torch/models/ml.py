@@ -583,6 +583,10 @@ class BayesianNetwork(nn.Module):
         rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (), generator=self._gen)))
         devices = None
         if mesh is not None:
+            if mesh.ranks.any():
+                raise ConfigurationError(
+                    "fit(mesh=) splits a minibatch over the devices of one process; a mesh "
+                    "that spans processes is for the sharded lattice, tempering and SMC paths")
             devices = [torch.device(d) for d in mesh.devices[0, :, 0, 0]]
         ts = [t.detach().clone() for t in _flat(trainable)]
         opt, _ = _adam(ts, scalar(learning_rate, self.device), self.device)

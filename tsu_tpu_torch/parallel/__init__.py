@@ -1,5 +1,5 @@
-"""Device-mesh parallelism: replicas and spatial lattice sharding, driven by
-one controller (counterpart of ``tsu_tpu/parallel/``).
+"""Device-mesh parallelism: replicas and spatial lattice sharding, in one
+process or across processes (counterpart of ``tsu_tpu/parallel/``).
 
 * ``replica`` axis: parallel tempering with the rungs' replicas spread over
   the devices (:func:`parallel_tempering_replica_sharded`).
@@ -8,11 +8,17 @@ one controller (counterpart of ``tsu_tpu/parallel/``).
 * ``chains`` axis: annealed SMC with the particles sharded
   (:func:`annealed_smc_sharded`), equal to the one-shard run bit for bit.
 
-A mesh may hold one device several times, so one card (or the CPU) carries
-a sharded run; on several cards the halos are device-to-device copies. The
-reference's multi-host runtime waits for slice 8 (ROADMAP.md).
+In one process a mesh may hold one device several times, so one card (or
+the CPU) carries a sharded run; on several cards the halos are
+device-to-device copies. After :func:`multihost_initialize` (one process
+per rank under ``torchrun``, :mod:`~tsu_tpu_torch.parallel.distributed`)
+the same entry points run over a mesh that spans processes and hosts: each
+rank holds and sweeps its own shards, halos between ranks go through
+``torch.distributed`` (NCCL across cards, gloo where ranks share one), and
+every rank returns the one-process result at the same seed.
 """
 
+from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.parallel.lattice import sharded_checkerboard_sweeps, sharded_lattice_sample
 from tsu_tpu_torch.parallel.mesh import (
     Mesh,
@@ -27,6 +33,7 @@ from tsu_tpu_torch.parallel.tempering_sharded import parallel_tempering_replica_
 __all__ = [
     "Mesh",
     "annealed_smc_sharded",
+    "distributed",
     "make_mesh",
     "mesh_info",
     "multihost_initialize",

@@ -12,6 +12,12 @@ P, dim) block per step, each shard taking its rows), so a sharded run equals
 the reference folds the shard index into the move key and agrees only
 within Monte-Carlo error. The step is ``samplers/smc.py``'s, which runs as
 a CUDA graph when every shard is on one card.
+
+Across processes (``parallel.multihost_initialize``) each rank holds the
+shards the mesh gives it (``Mesh.ranks``) and every rank must hold one;
+the log-weights are all-gathered each step and the particles only when
+resampling fires (``samplers/smc.py``), the steps run eagerly, and every
+rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from tsu_tpu_torch.energy import EnergyFn
+from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.rng import device_generator
 from tsu_tpu_torch.samplers.loop import Draws, as_states
 from tsu_tpu_torch.samplers.smc import run_smc
@@ -46,16 +53,28 @@ def annealed_smc_sharded(mesh, seed, particles, *, energy_fn: EnergyFn, n_steps:
         raise ValueError(f"annealed_smc_sharded shards particles over the chains axis alone, "
                          f"got axis {axis!r} on {mesh}")
     devices = list(mesh.devices.reshape(-1))
+    owners = mesh.ranks.reshape(-1)
     particles = as_states(particles, "cpu")
     P = particles.shape[0]
     if P % len(devices):
         raise ValueError(f"P={P} particles do not divide over {len(devices)} shards")
     rows = P // len(devices)
-    shards = [particles[s * rows:(s + 1) * rows].to(d) for s, d in enumerate(devices)]
-    out = run_smc(Draws(device_generator(seed, devices[0])), shards, energy_fn=energy_fn,
+    held = {s: d for s, d in enumerate(devices) if owners[s] == distributed.rank()}
+    if not held:
+        raise ValueError(f"rank {distributed.rank()} holds no shard of {mesh}")
+    shards = [particles[s * rows:(s + 1) * rows].to(held[s]) if s in held else None
+              for s in range(len(devices))]
+    ctrl = next(iter(held.values()))
+    out = run_smc(Draws(device_generator(seed, ctrl)), shards, energy_fn=energy_fn,
                   n_steps=n_steps, n_moves=n_moves, dt=dt, temperature=temperature,
-                  base_sigma=base_sigma, ess_threshold=ess_threshold)
-    return {"particles": np.concatenate([x.cpu().numpy() for x in out["particles"]]),
-            "log_weights": np.concatenate([w.cpu().numpy() for w in out["log_weights"]]),
+                  base_sigma=base_sigma, ess_threshold=ess_threshold, devices=tuple(devices))
+
+    def whole(name):
+        if len(held) == len(devices):
+            return np.concatenate([x.cpu().numpy() for x in out[name]])
+        return distributed.assemble({s: out[name][s] for s in held}, len(devices),
+                                    "cpu").numpy()
+
+    return {"particles": whole("particles"), "log_weights": whole("log_weights"),
             "log_Z": float(out["log_Z"]), "ess_history": out["ess_history"].cpu().numpy(),
             "route": out["route"]}

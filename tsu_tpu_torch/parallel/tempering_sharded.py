@@ -11,6 +11,12 @@ follow the rungs. Nothing larger than O(n_replicas) scalars leaves a device.
 Per-round (magnetization, energy, rung) traces come back, so the cold
 chain's (rung 0) observables are picked on the host.
 
+Across processes (``parallel.multihost_initialize``) each rank sweeps the
+replicas of its own mesh entries (``Mesh.ranks``); per round the (m, e)
+pairs are gathered on every rank, and every rank makes the same swap
+decisions from the same CPU generator: there is no coordinator, as the
+reference says of itself (``docs/DISTRIBUTED.md``).
+
 Host randomness (initial lattices, per-round stream ids, swap uniforms) is
 drawn up front from a CPU ``torch.Generator``, so a seed gives the same run
 on every mesh. Energies and magnetizations are float64.
@@ -23,6 +29,7 @@ import torch
 
 from tsu_tpu_torch.ops.checkerboard import plane_energy_batch, split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps_keyed, sigmoid_table16
+from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.parallel.mesh import Mesh
 from tsu_tpu_torch.rng import as_generator, sweep_keys
 
@@ -47,11 +54,13 @@ def _rung_swap(u: np.ndarray, energies: np.ndarray, rungs: np.ndarray,
     return new_rung_by_rung[rungs], int(np.sum(accept & is_left))
 
 
-def _replica_devices(mesh: Mesh, axis_name: str) -> list:
+def _replica_devices(mesh: Mesh, axis_name: str) -> tuple:
+    """(devices, ranks) of the entries along ``axis_name``."""
     names = list(mesh.axis_names)
     axis = names.index(axis_name)
     rest = tuple(0 for a in range(len(names)) if a != axis)
-    return list(np.moveaxis(mesh.devices, axis, 0)[(slice(None),) + rest])
+    return tuple(list(np.moveaxis(a, axis, 0)[(slice(None),) + rest])
+                 for a in (mesh.devices, mesh.ranks))
 
 
 def parallel_tempering_replica_sharded(mesh: Mesh, seed, shape, temperatures, *,
@@ -74,8 +83,9 @@ def parallel_tempering_replica_sharded(mesh: Mesh, seed, shape, temperatures, *,
     """
     temps = np.asarray(temperatures, np.float32).reshape(-1)
     n_rep = temps.shape[0]
-    devs = _replica_devices(mesh, axis_name)
+    devs, owners = _replica_devices(mesh, axis_name)
     n_dev = len(devs)
+    mine = [d for d in range(n_dev) if owners[d] == distributed.rank()]
     if n_rep % n_dev:
         raise ValueError(f"{n_rep} replicas on {n_dev} devices")
     per_dev = n_rep // n_dev
@@ -93,9 +103,9 @@ def parallel_tempering_replica_sharded(mesh: Mesh, seed, shape, temperatures, *,
     tables_all = sigmoid_table16(J, field, torch.from_numpy(ladder))   # row k: rung k
 
     slots = [slice(d * per_dev, (d + 1) * per_dev) for d in range(n_dev)]
-    planes = [split_checkerboard(lat0[s].to(dev, torch.bfloat16)) for s, dev in zip(slots, devs)]
-    keys = [keys_all[:, :, s].contiguous().to(dev) for s, dev in zip(slots, devs)]
-    tables = [tables_all.to(dev) for dev in devs]
+    planes = {d: split_checkerboard(lat0[slots[d]].to(devs[d], torch.bfloat16)) for d in mine}
+    keys = {d: keys_all[:, :, slots[d]].contiguous().to(devs[d]) for d in mine}
+    tables = {d: tables_all.to(devs[d]) for d in mine}
 
     rungs = np.arange(n_rep)
     ms = np.empty((total, n_rep))
@@ -103,17 +113,19 @@ def parallel_tempering_replica_sharded(mesh: Mesh, seed, shape, temperatures, *,
     rung_hist = np.empty((total, n_rep), dtype=np.int64)
     n_acc = 0
     for t in range(total):
-        obs = []
-        for d, dev in enumerate(devs):
-            my_rungs = torch.from_numpy(rungs[slots[d]]).to(dev)
+        obs = torch.zeros((2, n_rep), dtype=torch.float64)
+        for d in mine:
+            my_rungs = torch.from_numpy(rungs[slots[d]]).to(devs[d])
             reds, blacks = fused_sweeps_keyed(*planes[d], tables[d][my_rungs], keys[d][t],
                                               periodic=periodic)
             planes[d] = (reds, blacks)
             m = (reds.sum((-2, -1), dtype=torch.float64)
                  + blacks.sum((-2, -1), dtype=torch.float64)) / n_sites
             e = plane_energy_batch(reds, blacks, J=J, field=field, periodic=periodic)
-            obs.append(torch.stack([m, e]))
-        m_all, e_all = torch.cat([o.cpu() for o in obs], dim=1).numpy()
+            obs[:, slots[d]] = torch.stack([m, e]).cpu()
+        if distributed.initialized():
+            obs = distributed.all_reduce_sum(obs)    # each replica's pair from its rank
+        m_all, e_all = obs.numpy()
         if (t + 1) % swap_interval == 0:
             rungs, acc = _rung_swap(swap_u[t], e_all, rungs, betas_ladder,
                                     (t // swap_interval) % 2)

@@ -17,11 +17,21 @@ and no host sync, and runs as a CUDA graph when every shard is on one card.
 The move's normals are one (n_moves, P, dim) block per step, each shard
 taking its rows, so a particle's draws depend on its global index only and
 a sharded run equals the one-shard run at one seed, bit for bit.
+
+**Across processes** (``mine``: the shards this rank holds) a rank keeps
+only its shards' particles and weights. Each step all-gathers the P
+log-weights; every rank computes the ESS, the log-Z increment and the
+resampling indices alike, and all-gathers the particles only when the ESS
+test fires, which it reads on the host. Every rank draws the whole noise
+block from an identically seeded generator and takes its rows. A gloo
+collective cannot be captured in a CUDA graph, and the resampling test is a
+host sync, so that step runs eagerly (route "eager").
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -52,13 +62,21 @@ def systematic_resample_indices(u, log_w: torch.Tensor) -> torch.Tensor:
 
 
 def smc_loop(energy_fn: EnergyFn, devices: tuple, P: int, dim: int, *, n_steps: int,
-             n_moves: int, ess_threshold: float, graph: bool = True, probe=None) -> StepLoop:
+             n_moves: int, ess_threshold: float, graph: bool = True, probe=None,
+             mine: Optional[tuple] = None) -> StepLoop:
     """The (cached) SMC step loop over shards of P // len(devices)
     particles on ``devices``; state: the shards' particles "x0", "x1", ...
     and log-weights "w0", "w1", ..., log_z, the step count t, betas, T, dt
-    and base_sigma. Records the ESS of each step."""
+    and base_sigma. Records the ESS of each step. ``mine``: across
+    processes, the shards this rank holds (the state keeps those alone; the
+    steps run eagerly); default every shard, in one process. ``probe``: the
+    initial particles of this process's shards, in order."""
+    from tsu_tpu_torch.parallel import distributed   # parallel imports this module
+
     devices = tuple(canonical(d) for d in devices)
-    ctrl = devices[0]
+    multi = mine is not None
+    held = tuple(range(len(devices))) if mine is None else tuple(mine)
+    ctrl = devices[held[0]]
 
     def build():
         n = len(devices)
@@ -66,12 +84,12 @@ def smc_loop(energy_fn: EnergyFn, devices: tuple, P: int, dim: int, *, n_steps: 
         st = {"log_z": scalar(0.0, ctrl), "t": torch.zeros(1, dtype=torch.int64, device=ctrl),
               "betas": torch.linspace(0.0, 1.0, n_steps + 1, dtype=torch.float32, device=ctrl),
               "T": scalar(1.0, ctrl), "dt": scalar(0.05, ctrl), "base_sigma": scalar(3.0, ctrl)}
-        for s, dev in enumerate(devices):
-            x = torch.zeros((rows, dim), dtype=torch.float32, device=dev)
+        for k, s in enumerate(held):
+            x = torch.zeros((rows, dim), dtype=torch.float32, device=devices[s])
             if probe is not None:
-                x.copy_(probe[s * rows:(s + 1) * rows])
+                x.copy_(probe[k * rows:(k + 1) * rows])
             st[f"x{s}"] = x
-            st[f"w{s}"] = torch.zeros(rows, dtype=torch.float32, device=dev)
+            st[f"w{s}"] = torch.zeros(rows, dtype=torch.float32, device=devices[s])
         T, base_sigma = st["T"], st["base_sigma"]
         beta = {"now": scalar(0.0, ctrl)}
 
@@ -85,11 +103,18 @@ def smc_loop(energy_fn: EnergyFn, devices: tuple, P: int, dim: int, *, n_steps: 
             b = beta["now"]
             return (1.0 - b) * e_base(x) + b * e_target(x)
 
-        base = Potential(e_base, st["x0"], "base energy")
-        target = Potential(e_target, st["x0"], "energy")
-        moved = Potential(e_beta, st["x0"], "annealed energy")
+        x_probe = st[f"x{held[0]}"]
+        base = Potential(e_base, x_probe, "base energy")
+        target = Potential(e_target, x_probe, "energy")
+        moved = Potential(e_beta, x_probe, "annealed energy")
         batched = base.batched and target.batched and moved.batched
-        one_card = graph and all(d == ctrl for d in devices)
+        one_card = graph and not multi and all(d == ctrl for d in devices)
+
+        def gathered(name: str) -> torch.Tensor:
+            """The shards' ``name`` tensors end to end, on ``ctrl``."""
+            if multi:
+                return distributed.assemble({s: st[f"{name}{s}"] for s in held}, n, ctrl)
+            return torch.cat([st[f"{name}{s}"].to(ctrl) for s in range(n)])
 
         def step(bufs, k):
             t = st["t"]
@@ -97,11 +122,11 @@ def smc_loop(energy_fn: EnergyFn, devices: tuple, P: int, dim: int, *, n_steps: 
             b = st["betas"].index_select(0, t + 1).squeeze(0)
             beta["now"] = b
             # Incremental weights: -(beta - beta_prev) * (E_target - E_base).
-            for s in range(n):
+            for s in held:
                 x = st[f"x{s}"]
                 st[f"w{s}"].add_((-(b - b_prev) * (target.value(x) - base.value(x))).to(
                     x.device))
-            log_w = torch.cat([st[f"w{s}"].to(ctrl) for s in range(n)])
+            log_w = gathered("w")
             log_z_inc = torch.logsumexp(log_w, dim=0) - math.log(P)
             ess = 1.0 / torch.sum(torch.softmax(log_w, dim=0) ** 2)
             resample = ess < ess_threshold * P
@@ -109,17 +134,20 @@ def smc_loop(energy_fn: EnergyFn, devices: tuple, P: int, dim: int, *, n_steps: 
             # absorbing the weights into the running log-Z estimate.
             idx = torch.where(resample, systematic_resample_indices(bufs["u"][k], log_w),
                               torch.arange(P, device=ctrl))
-            parts = torch.cat([st[f"x{s}"].to(ctrl) for s in range(n)])[idx]
-            for s in range(n):
-                x = st[f"x{s}"]
-                x.copy_(parts[s * rows:(s + 1) * rows].to(x.device))
+            # Across processes the particles move only when resampling fires.
+            if not multi or bool(resample):
+                parts = gathered("x")[idx]
+                for s in held:
+                    x = st[f"x{s}"]
+                    x.copy_(parts[s * rows:(s + 1) * rows].to(x.device))
+            for s in held:
                 w = st[f"w{s}"]
                 w.copy_(torch.where(resample.to(w.device), 0.0, w))
             st["log_z"].copy_(torch.where(resample, st["log_z"] + log_z_inc, st["log_z"]))
             # n_moves overdamped Langevin steps on E_beta.
             noise = bufs["noise"][k]
             for m in range(n_moves):
-                for s in range(n):
+                for s in held:
                     x = st[f"x{s}"]
                     xi = noise[m, s * rows:(s + 1) * rows].to(x.device)
                     x.copy_(x - moved.grad(x) * st["dt"].to(x.device)
@@ -133,41 +161,55 @@ def smc_loop(energy_fn: EnergyFn, devices: tuple, P: int, dim: int, *, n_steps: 
                         {"ess": ((), torch.float32)}, graph=one_card, batched=batched)
 
     return cached_loop(("annealed_smc", energy_fn, devices, P, dim, n_steps, n_moves,
-                        ess_threshold, graph), build)
+                        ess_threshold, graph, mine), build)
 
 
 def run_smc(draws: Draws, shards: list, *, energy_fn: EnergyFn, n_steps: int = 50,
             n_moves: int = 5, dt: float = 0.05, temperature: float = 1.0,
-            base_sigma: float = 3.0, ess_threshold: float = 0.5, graph: bool = True) -> dict:
+            base_sigma: float = 3.0, ess_threshold: float = 0.5, graph: bool = True,
+            devices: Optional[tuple] = None) -> dict:
     """Annealed SMC on the particle shards ``shards`` (a list of (P_s, dim)
     tensors, each on its device; P_s equal) and ``draws`` ("u": (1,) and
-    "noise": (n_moves, P, dim) per step). Returns the shards' final
-    particles and log-weights, log_Z, ess_history and route."""
-    devices = tuple(x.device for x in shards)
-    P = sum(x.shape[0] for x in shards)
-    dim = shards[0].shape[1]
+    "noise": (n_moves, P, dim) per step). Across processes a shard that
+    another rank holds is None and ``devices`` gives every shard's device.
+    Returns the shards' final particles and log-weights (None for another
+    rank's), log_Z, ess_history and route."""
+    from tsu_tpu_torch.parallel import distributed   # parallel imports this module
+
+    held = tuple(s for s, x in enumerate(shards) if x is not None)
+    if not held:
+        raise ValueError("every process must hold a particle shard")
+    mine = held if len(held) < len(shards) else None
+    if devices is None:
+        devices = tuple(x.device for x in shards)
+    rows, dim = shards[held[0]].shape
+    P = rows * len(shards)
+    ctrl = shards[held[0]].device
     loop = smc_loop(energy_fn, devices, P, dim, n_steps=n_steps, n_moves=n_moves,
-                    ess_threshold=ess_threshold, graph=graph, probe=torch.cat(
-                        [x.to(devices[0]) for x in shards]))
+                    ess_threshold=ess_threshold, graph=graph, mine=mine, probe=torch.cat(
+                        [shards[s].to(ctrl) for s in held]))
     st = loop.state
-    for s, x in enumerate(shards):
-        st[f"x{s}"].copy_(x)
+    for s in held:
+        st[f"x{s}"].copy_(shards[s])
         st[f"w{s}"].zero_()
     st["log_z"].zero_()
     st["t"].zero_()
     st["T"].fill_(temperature)
     st["dt"].fill_(dt)
     st["base_sigma"].fill_(base_sigma)
-    ess_history = torch.empty(n_steps, dtype=torch.float32, device=devices[0])
+    ess_history = torch.empty(n_steps, dtype=torch.float32, device=ctrl)
     i = 0
     for L in chunks(n_steps, max(1, GRADS_PER_GRAPH // max(n_moves, 1))):
         ess_history[i:i + L].copy_(loop.run(draws, L)["ess"])
         i += L
     n = len(shards)
-    log_w = torch.cat([st[f"w{s}"].to(devices[0]) for s in range(n)])
+    if mine is None:
+        log_w = torch.cat([st[f"w{s}"].to(ctrl) for s in range(n)])
+    else:
+        log_w = distributed.assemble({s: st[f"w{s}"] for s in held}, n, ctrl)
     log_z = st["log_z"] + torch.logsumexp(log_w, dim=0) - math.log(P)
-    return {"particles": [st[f"x{s}"].clone() for s in range(n)],
-            "log_weights": [st[f"w{s}"].clone() for s in range(n)],
+    return {"particles": [st[f"x{s}"].clone() if s in held else None for s in range(n)],
+            "log_weights": [st[f"w{s}"].clone() if s in held else None for s in range(n)],
             "log_Z": log_z, "ess_history": ess_history, "route": loop.route}
 
 
