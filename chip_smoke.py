@@ -242,10 +242,25 @@ Phases, each of which raises on failure:
     and log Z == the one-process run's at the same seed, bit for bit, and
     the resumed run == the uninterrupted one; each run's wall, host ms a
     sweep, bytes and messages a halo exchange and launches per kernel;
-    a rank that fails or a torchrun past its timeout fails the phase.
+    a rank that fails or a torchrun past its timeout fails the phase;
+42. the seven examples of tsu_tpu_torch.examples at their default sizes,
+    each from zeroed counts with its wall, its result line and its launches:
+    checkpoint_resume (a sharded sample on 4 row shards of 64x64 killed at 4
+    samples and resumed to 12, 256 K1 shard-mode launches; a PT search of
+    16^2 killed at 30 iterations and resumed to 90, 392 K5; both equal to
+    the uninterrupted runs, else it raises), spin_glass_ground_state
+    (1024^2 +-J, 3,000 sweeps x 2 restarts, 12,000 K4; below -1.3 per
+    site), large_scale_maxcut (100,000 nodes, 500,000 edges, 2,000 steps, 8
+    chains; the cut at or above the native greedy bound), quickstart (K1
+    through a 32x32 IsingGrid; the Gaussian's mean, the 2-bit aligned
+    fraction, |M| > 0.8), api_tour (K1 through an unseeded 16x16 IsingGrid;
+    |M| > 0.5), bayesian_nn_demo (the band wider outside the data than inside)
+    and hardware_projection (the rooflines and K1's rate measured in the
+    run, 20,000 K1); an example that raises, fails its check or launches
+    other kernels fails the phase.
 
-A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:" and a "slice 8:"
-JSON log line carry those phases' numbers.
+A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:" and a
+"slice 9:" JSON log line carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
@@ -255,7 +270,7 @@ a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
 grid-stride body's time, the barrier cost and the grid; K1-K5 the launches
 of each slice-7 path that ran them, K1-K3 those of each slice-8 path,
-summed over its ranks)
+summed over its ranks, K1, K4 and K5 those of each example of phase 42)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
 exits non-zero before printing either.
 """
@@ -305,6 +320,7 @@ from tsu_tpu_torch import (
 )
 from tsu_tpu_torch import AnchoredEnsembleRegressor, BayesianRegressor, native
 from tsu_tpu_torch import cli, demos, graft_entry, plot_phase_transition
+from tsu_tpu_torch import examples
 from tsu_tpu_torch.benchmarks import BenchmarkRunner, MLBenchmark
 from tsu_tpu_torch.benchmarks.scaling import (
     bnn_dp_row,
@@ -3348,6 +3364,71 @@ def phase_multiprocess(dev, workdir):
     return launches, numbers
 
 
+# -- slice 9: the examples -------------------------------------------------------
+
+
+def phase_examples(dev, workdir):
+    """Phase 42: the seven examples of tsu_tpu_torch.examples on the card at
+    their default sizes, each from zeroed counts, with its wall, its result
+    line and its K1/K4/K5 launches. Each example's own checks raise inside
+    it (checkpoint_resume's two equalities); here each must also meet its
+    physics and launch exactly its kernels. Returns (each example's
+    launches, its numbers)."""
+    import importlib
+
+    ex = {name: importlib.import_module(f"tsu_tpu_torch.examples.{name}")
+          for name in examples.NAMES}
+    n = lambda got, k: got[NAMES.index(k)]   # noqa: E731
+    only = lambda got, *ks: not any(g for k, g in zip(NAMES, got) if k not in ks)   # noqa: E731
+    runs = {
+        # 4 row shards x (20 + 12 sweeps, 20 + 4, then 8 resumed) of K1; K5
+        # two half-sweeps an iteration and a quench sweep: 90 + 8, 30, 60 + 8.
+        "checkpoint_resume": (
+            lambda: ex["checkpoint_resume"].main(device=dev),
+            lambda r, got: got == expect(4 * (32 + 24 + 8), 0, 0, 2 * (98 + 30 + 68))),
+        "spin_glass_ground_state": (
+            lambda: ex["spin_glass_ground_state"].main(device=dev),
+            lambda r, got: r["energy_per_site"] < -1.3 and got == expect(0, 0, 2 * 3000 * 2)),
+        "large_scale_maxcut": (
+            lambda: ex["large_scale_maxcut"].main(device=dev),
+            lambda r, got: r["cut"] >= r["greedy_cut"] and not any(got)),
+        "quickstart": (
+            lambda: ex["quickstart"].main(device=dev),
+            lambda r, got: (abs(r["gaussian_mean"] - 2.0) < 0.1 and r["abs_magnetization"] > 0.8
+                            and abs(r["aligned"] - (1 + np.e**2) / (3 + np.e**2)) < 0.05
+                            and n(got, "K1") > 0 and only(got, "K1"))),
+        "api_tour": (
+            lambda: ex["api_tour"].main(device=dev),
+            lambda r, got: (r["abs_magnetization"] > 0.5 and 0 < r["cut"] <= r["edges"]
+                            and n(got, "K1") > 0 and only(got, "K1"))),
+        "bayesian_nn_demo": (
+            lambda: ex["bayesian_nn_demo"].main(plot_dir=workdir, device=dev),
+            lambda r, got: r["width_out"] > r["width_in"] > 0 and not any(got)),
+        # A warm-up call and a timed call of 10,000 sweeps.
+        "hardware_projection": (
+            lambda: ex["hardware_projection"].main(device=dev),
+            lambda r, got: r["measured_flips_per_s"] > 5e10 and got == expect(2 * 10_000)),
+    }
+    launches, numbers = {}, {}
+    t_phase = time.perf_counter()
+    for name, (run, check) in runs.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"example {name}: {wall:.3f} s; {res['line']}; launches {launch_counts(got)}")
+        if not check(res, got):
+            raise AssertionError(f"example {name}: its check failed ({res['line']}; launches "
+                                 f"{launch_counts(got)})")
+        launches[name] = got
+        numbers[name] = {"wall_s": wall, "line": res["line"], "launches": launch_counts(got)}
+    numbers["seconds"] = time.perf_counter() - t_phase
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3518,6 +3599,17 @@ def main() -> int:
     log(f"phase 41 added {numbers8['seconds']:.1f} s")
     log("slice 8: " + json.dumps({**numbers8, "card": name}, default=float))
 
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
+        slice9, numbers9 = phase_examples(dev, workdir)
+    log("phase 42: the seven examples ran on the card at their default sizes (K1, K4, K5)")
+    log(f"phase 42 added {numbers9['seconds']:.1f} s")
+    log("slice 9: " + json.dumps({**numbers9, "card": name}, default=float))
+
+    def slice9_launches(k):
+        """The examples that launched kernel k, with their launches."""
+        i = NAMES.index(k)
+        return {example: got[i] for example, got in slice9.items() if got[i]}
+
     def slice8_launches(k):
         """Slice 8's paths that launched kernel k, summed over their ranks."""
         i = ("K1", "K2", "K3").index(k)
@@ -3578,7 +3670,8 @@ def main() -> int:
               shard_launches=launches1s, shard_ms=st["K1 shard"],
               shard_plain_ms=st["K1 shard plain"],
               shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4),
-              slice7_launches=slice7_launches("K1"), slice8_launches=slice8_launches("K1")),
+              slice7_launches=slice7_launches("K1"), slice8_launches=slice8_launches("K1"),
+              slice9_launches=slice9_launches("K1")),
         entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
               err2, ms2, plain_ms2, 3 * 2 * batched_site + B * 11 * 4, graph_ms=graph2_ms,
               replica_sharded_launches=launches2s, slice7_launches=slice7_launches("K2"),
@@ -3609,7 +3702,7 @@ def main() -> int:
               ms_4096x4094=bond_times["K4 discrete 4096x4094"][0],
               plain_ms_4096x4094=bond_times["K4 discrete 4096x4094"][2],
               bound_ms_4096x4094=bound_ms(5 * ragged_site + 9 * 4),
-              slice7_launches=slice7_launches("K4")),
+              slice7_launches=slice7_launches("K4"), slice9_launches=slice9_launches("K4")),
         entry("bond_halfsweep_batched", bonds, "tsu_tpu/ops/checkerboard_bonds_pallas.py:320",
               launches5, err5, bond_times["K5 discrete"][0], bond_times["K5 discrete"][2],
               4 * ladder_site + PT_SHAPE[0] * PT_SHAPE[1] // 2 + LADDER_BATCH * 11 * 4,
@@ -3617,7 +3710,7 @@ def main() -> int:
               plain_ms_64x256x256=bond_times["K5 discrete 64 x 256^2"][2],
               bound_ms_64x256x256=bound_ms(4 * pt_site + PT_SHAPE[0] * PT_SHAPE[1] // 2
                                            + PT_RUNGS * 11 * 4),
-              slice7_launches=slice7_launches("K5")),
+              slice7_launches=slice7_launches("K5"), slice9_launches=slice9_launches("K5")),
         entry("resident_sweeps", resident, "tsu_tpu/ops/checkerboard_resident.py:56", launches6,
               err6, rt["K6"], rt["K6 plain"], (4 * 2 * site + 9 * 4) / S, **resident_extra("K6")),
         entry("resident_anneal", resident, "tsu_tpu/ops/checkerboard_resident.py:219", launches7,

@@ -70,3 +70,20 @@ def test_zero_steps_return_the_initial_state():
     assert float(lattice_energy_batch(state)) == e
     with pytest.raises(ValueError):
         anneal_lattice(3, (6, 6), n_steps=5, track_every=0, device="cpu")
+
+
+def test_anneal_spin_glass_resumes_to_more_restarts(tmp_path):
+    """A search of 1 restart, snapshotted, resumed with n_restarts=3 equals
+    the uninterrupted 3 restarts: restart r draws from the generator state
+    after r restarts, which the snapshot carries, whatever n_restarts."""
+    from tsu_tpu_torch.samplers import anneal_spin_glass
+
+    rng = np.random.default_rng(5)
+    Jh, Jv = (rng.choice([-1.0, 1.0], (8, 8)).astype(np.float32) for _ in range(2))
+    kw = dict(n_steps=40, device="cpu")
+    full = anneal_spin_glass(2, Jh, Jv, n_restarts=3, **kw)
+    path = str(tmp_path / "ck")
+    anneal_spin_glass(2, Jh, Jv, n_restarts=1, checkpoint_path=path, **kw)
+    resumed = anneal_spin_glass(2, Jh, Jv, n_restarts=3, checkpoint_path=path, resume=True, **kw)
+    assert resumed[1] == full[1]
+    assert np.array_equal(resumed[0], full[0])

@@ -12,7 +12,7 @@ open), the sampler's observables and final planes, the replica-sharded
 tempering's rungs and swaps, and the sharded SMC. One injected-uniform
 sweep over 4 ranks is held against the JAX package's sharded sweep on its
 virtual CPU devices. Snapshots resume across topologies, 2 ranks -> 1
-process and 1 process -> 2 ranks.
+process and 1 process -> 2 ranks, and over 2 ranks to a longer horizon.
 """
 
 import json
@@ -67,6 +67,7 @@ SAMPLES_4 = {
 SAMPLES_2 = {"sample_k1_rows4_two_a_rank": {"rows": 4, "ranks": [0, 0, 1, 1]}}
 SAMPLE = dict(kind="sample", shape=[16, 16], seed=5, n_samples=4, n_burnin=4, n_sweeps=2)
 RESUMED = dict(SAMPLE, mesh={"rows": 2}, seed=8)
+EXTENDED = dict(SAMPLE, mesh={"rows": 4, "ranks": [0, 0, 1, 1]}, seed=10, n_samples=12)
 JAX_SWEEP = dict(name="jax_k3_rows4", kind="sweeps", shape=[16, 16], seed=9,
                  mesh={"rows": 4}, n_sweeps=2, uniform_bits=24, fused=False)
 
@@ -92,13 +93,17 @@ def _cases4():
                     chains_per_device=8, n_sweeps=4)])
 
 
-def _cases2(snapshot_in, snapshot_out):
+def _cases2(snapshot_in, snapshot_out, snapshot_short):
     return (_sweep_cases(SWEEPS_2)
             + [dict(SAMPLE, name=name, mesh=mesh) for name, mesh in SAMPLES_2.items()]
             + [dict(RESUMED, name="snapshot_then_stop",
                     checkpoint={"path": snapshot_out, "every": 2, "stop_after_first": True}),
                dict(RESUMED, name="resumed_from_one_process",
                     checkpoint={"path": snapshot_in, "every": 2, "resume": True}),
+               dict(EXTENDED, name="killed_at_4", n_samples=4,
+                    checkpoint={"path": snapshot_short, "every": 4}),
+               dict(EXTENDED, name="resumed_to_12",
+                    checkpoint={"path": snapshot_short, "every": 4, "resume": True}),
                dict(name="tempering", kind="tempering", shape=[8, 8], seed=7,
                     mesh={"replica": 2}, temperatures=[1.8, 3.0, 4], n_samples=6,
                     swap_interval=2, n_burnin=4),
@@ -144,13 +149,14 @@ def ranks4(tmp_path_factory):
 def ranks2(tmp_path_factory):
     """Two ranks; before them one process writes a snapshot (stopped after
     it) that the ranks resume from, and the ranks write one (stopped after
-    it) that the tests resume in one process."""
+    it) that the tests resume in one process; the ranks also run 4 samples
+    and resume them to 12."""
     tmp = tmp_path_factory.mktemp("ranks2")
     snapshot_in, snapshot_out = str(tmp / "one_process.pt"), str(tmp / "two_ranks.pt")
     one = dict(RESUMED, checkpoint={"path": snapshot_in, "every": 2,
                                     "stop_after_first": True})
     assert run_case(one, "cpu")["out"] == "stopped"
-    return spawn(tmp, 2, _cases2(snapshot_in, snapshot_out)), snapshot_out
+    return spawn(tmp, 2, _cases2(snapshot_in, snapshot_out, str(tmp / "short.pt"))), snapshot_out
 
 
 def _same(a, b) -> bool:
@@ -191,7 +197,7 @@ def test_sweeps_on_four_ranks_equal_one_process(ranks4, name):
 
 @pytest.mark.parametrize("name", list(SWEEPS_2))
 def test_sweeps_on_two_ranks_equal_one_process(ranks2, name):
-    _check_sweeps(ranks2[0], next(c for c in _cases2("", "") if c["name"] == name))
+    _check_sweeps(ranks2[0], next(c for c in _cases2("", "", "") if c["name"] == name))
 
 
 @pytest.mark.parametrize("name", list(SAMPLES_4))
@@ -201,7 +207,7 @@ def test_sample_on_four_ranks_equals_one_process(ranks4, name):
 
 @pytest.mark.parametrize("name", list(SAMPLES_2))
 def test_sample_on_two_ranks_equals_one_process(ranks2, name):
-    _check_sample(ranks2[0], next(c for c in _cases2("", "") if c["name"] == name))
+    _check_sample(ranks2[0], next(c for c in _cases2("", "", "") if c["name"] == name))
 
 
 def test_halos_cross_ranks_tagged(ranks2):
@@ -222,7 +228,7 @@ def test_grid_sample_observables_takes_the_global_mesh(ranks4):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_replica_sharded_tempering_equals_one_process(ranks2, ranks4, n):
-    results, cases = (ranks2[0], _cases2("", "")) if n == 2 else (ranks4, _cases4())
+    results, cases = (ranks2[0], _cases2("", "", "")) if n == 2 else (ranks4, _cases4())
     ref = run_case(next(c for c in cases if c["name"] == "tempering"), "cpu")["out"]
     for res in results:
         got = res["tempering"]["out"]
@@ -233,7 +239,7 @@ def test_replica_sharded_tempering_equals_one_process(ranks2, ranks4, n):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_sharded_smc_equals_one_process(ranks2, ranks4, n):
-    results, cases = (ranks2[0], _cases2("", "")) if n == 2 else (ranks4, _cases4())
+    results, cases = (ranks2[0], _cases2("", "", "")) if n == 2 else (ranks4, _cases4())
     ref = run_case(next(c for c in cases if c["name"] == "smc"), "cpu")["out"]
     for res in results:
         got = res["smc"]["out"]
@@ -281,6 +287,16 @@ def test_two_ranks_snapshot_resumes_on_one_process(ranks2):
 
 def test_one_process_snapshot_resumes_on_two_ranks(ranks2):
     _check_sample(ranks2[0], dict(RESUMED, name="resumed_from_one_process"), _uninterrupted())
+
+
+def test_two_ranks_resume_a_short_run_to_a_longer_horizon(ranks2):
+    """Killed at 4 samples and resumed with n_samples=12 over 2 ranks (two
+    row shards a rank): every rank's series == the uninterrupted 12 in one
+    process."""
+    full = run_case(EXTENDED, "cpu")["out"]
+    for res in ranks2[0]:
+        assert torch.equal(res["killed_at_4"]["out"]["magnetization"], full["magnetization"][:4])
+    _check_sample(ranks2[0], dict(EXTENDED, name="resumed_to_12"), full)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -350,7 +366,7 @@ def test_initialize_without_a_card_raises(monkeypatch):
 
 
 def test_the_check_tool_knows_each_kind():
-    assert set(multiprocess_check.KINDS) == {c["kind"] for c in _cases4() + _cases2("", "")}
+    assert set(multiprocess_check.KINDS) == {c["kind"] for c in _cases4() + _cases2("", "", "")}
 
 
 def test_bnn_fit_refuses_a_mesh_across_processes():

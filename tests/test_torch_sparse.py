@@ -166,6 +166,19 @@ def test_killed_and_resumed_matches(tmp_path, monkeypatch, killed_after):
     assert e == full_e and torch.equal(s, full_s)
 
 
+def test_anneal_stopped_short_resumes_to_a_longer_schedule(tmp_path):
+    """Step t draws fixed-shape blocks from a generator whose state the
+    snapshot carries: the first 20 steps of the schedule, snapshotted, then
+    resumed with all 60, equal the uninterrupted 60."""
+    args = _anneal_args(4, 40, 150)
+    full_s, full_e = sparse_anneal(7, *args, n_steps=60, n_chains=4, device=CPU)
+    path = str(tmp_path / "anneal")
+    sparse_anneal(7, *args, n_steps=20, n_chains=4, checkpoint_path=path, device=CPU)
+    s, e = sparse_anneal(7, *args, n_steps=60, n_chains=4, chunk_steps=20,
+                         checkpoint_path=path, resume=True, device=CPU)
+    assert e == full_e and torch.equal(s, full_s)
+
+
 def test_resume_without_a_snapshot_runs_from_the_start(tmp_path):
     args = _anneal_args(2, 30, 100)
     full = sparse_anneal(6, *args, n_steps=60, n_chains=2, device=CPU)

@@ -236,3 +236,94 @@ def test_pt_ground_state_search_killed_and_resumed_equals_uninterrupted(
     assert np.array_equal(resumed["best_state"], full["best_state"])
     np.testing.assert_array_equal(resumed["pair_attempts"], full["pair_attempts"])
     assert resumed["swap_acceptance_rate"] == full["swap_acceptance_rate"]
+
+
+def _checkpoint_resume_pt_kw():
+    """examples/checkpoint_resume.py's PT search: 16^2 ±J, 8 rungs."""
+    Jh, Jv = _pm1(3, 16)
+    return Jh, Jv, dict(temperatures=np.geomspace(0.4, 2.0, 8), n_sweeps=1, device="cpu")
+
+
+@pytest.mark.parametrize("n_copies", [1, 2])
+def test_pt_ground_state_search_killed_short_resumes_to_a_longer_horizon(tmp_path, n_copies):
+    """The reference's own pattern: a search of 30 iterations with no quench,
+    snapshotted, then resumed with n_iters=90 and the quench, returns the
+    uninterrupted 90-iteration search bit for bit (best energy, state and
+    swap counts); with two copies Houdayer moves fall on both sides of the
+    snapshot."""
+    Jh, Jv, kw = _checkpoint_resume_pt_kw()
+    kw.update(n_copies=n_copies, houdayer_every=7 if n_copies > 1 else 0)
+    full = pt_ground_state_search(3, Jh, Jv, n_iters=90, quench_sweeps=8, **kw)
+    path = str(tmp_path / "pt")
+    pt_ground_state_search(3, Jh, Jv, n_iters=30, chunk_iters=30, checkpoint_path=path,
+                           quench_sweeps=0, **kw)
+    resumed = pt_ground_state_search(3, Jh, Jv, n_iters=90, chunk_iters=30,
+                                     checkpoint_path=path, resume=True, quench_sweeps=8, **kw)
+    assert resumed["best_energy"] == full["best_energy"]
+    assert np.array_equal(resumed["best_state"], full["best_state"])
+    np.testing.assert_array_equal(resumed["pair_attempts"], full["pair_attempts"])
+    assert resumed["swap_acceptance_rate"] == full["swap_acceptance_rate"]
+    assert resumed["iters_run"] == 90
+
+
+def test_pt_ground_state_search_first_iterations_do_not_depend_on_the_horizon(
+        tmp_path, monkeypatch):
+    """Iteration t draws from (seed, t) alone: the replica and best planes
+    snapshotted after 30 iterations are the same in a 30- and a
+    90-iteration search (the latter killed at that snapshot)."""
+    from tsu_tpu_torch.checkpoint import restore_state
+    from tsu_tpu_torch.samplers import tempering_ladder as tl
+
+    Jh, Jv, kw = _checkpoint_resume_pt_kw()
+    kw.update(checkpoint_every=30, quench_sweeps=0, n_copies=2, houdayer_every=5)
+    short, long_ = str(tmp_path / "pt30"), str(tmp_path / "pt90")
+    pt_ground_state_search(3, Jh, Jv, n_iters=30, checkpoint_path=short, **kw)
+    real_save = tl.save_state
+
+    def dying_save(*args, **kwargs):
+        real_save(*args, **kwargs)
+        raise RuntimeError("killed")
+
+    monkeypatch.setattr(tl, "save_state", dying_save)
+    with pytest.raises(RuntimeError, match="killed"):
+        pt_ground_state_search(3, Jh, Jv, n_iters=90, checkpoint_path=long_, **kw)
+    planes = {k: torch.zeros(0) for k in ("reds", "blacks", "best_r", "best_b", "best_e")}
+    a, b = (restore_state(p, {**planes, "done": 0}) for p in (short, long_))
+    assert a["done"] == b["done"] == 30
+    for k in planes:
+        assert torch.equal(a[k].float(), b[k].float()), k
+
+
+def test_pt_ground_state_search_refuses_an_old_scheme_snapshot(tmp_path):
+    """A snapshot without the stream scheme (written when every draw was made
+    up front, so iteration t's stream depended on n_iters) raises on
+    resume=True instead of continuing another stream."""
+    from tsu_tpu_torch.checkpoint import restore_state, save_state
+    from tsu_tpu_torch.config import ConfigurationError
+
+    Jh, Jv, kw = _checkpoint_resume_pt_kw()
+    path = str(tmp_path / "pt")
+    pt_ground_state_search(3, Jh, Jv, n_iters=10, checkpoint_path=path, quench_sweeps=0, **kw)
+    keys = ("reds", "blacks", "best_r", "best_b", "best_e", "acc_p", "att_p")
+    old = restore_state(path, {**{k: torch.zeros(0) for k in keys}, "done": 0})
+    save_state(path, old)
+    with pytest.raises(ConfigurationError, match="stream scheme"):
+        pt_ground_state_search(3, Jh, Jv, n_iters=20, checkpoint_path=path, resume=True,
+                               quench_sweeps=0, **kw)
+
+
+def test_reference_example_resumes_to_a_longer_horizon(tmp_path, monkeypatch):
+    """Witness: the JAX package's own examples/checkpoint_resume.py, at its
+    sizes on the CPU devices, kills both runs short and resumes them long,
+    and its two asserts hold: the property the port now keeps."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "ref_checkpoint_resume",
+        Path(__file__).resolve().parents[1] / "examples" / "checkpoint_resume.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(mod.tempfile, "mkdtemp", lambda prefix="": str(tmp_path))
+    mod.main()
+    assert (tmp_path / "lattice_ck_obs.npz").exists()

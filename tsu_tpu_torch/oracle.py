@@ -1,14 +1,14 @@
-"""Numpy ground truths: exact enumeration of small Boltzmann and Ising
-models (the benchmark suites' reference), Onsager's magnetization of the
-infinite 2-D lattice, and the host Wolff cluster sampler (the critical-ESS
-yardstick).
+"""Numpy ground truths: the energies of bits, spins and a 2-D lattice,
+sequential heat-bath Gibbs over bits and over spins on a numpy generator,
+exact enumeration of small Boltzmann and Ising models (the benchmark
+suites' reference), Onsager's magnetization of the infinite 2-D lattice,
+and the host Wolff cluster sampler (the critical-ESS yardstick).
 
-The port's copy of ``_enumerate_moments``, ``exact_boltzmann_moments``,
-``exact_ising_moments`` and ``onsager_magnetization`` of
-``tsu_tpu/oracle/numpy_ref.py`` and of ``wolff_chain`` of
-``tsu_tpu/oracle/wolff.py``: importing those modules runs
+The port's copy of ``tsu_tpu/oracle/numpy_ref.py`` and of ``wolff_chain``
+of ``tsu_tpu/oracle/wolff.py``: importing those modules runs
 ``tsu_tpu/__init__.py``, which imports JAX, so the port keeps its own.
-Numpy, float64.
+Numpy, float64; the same inputs and the same numpy generator give the same
+results.
 """
 
 from __future__ import annotations
@@ -16,6 +16,83 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+
+__all__ = [
+    "ising_energy",
+    "boltzmann_energy",
+    "sequential_gibbs_bits",
+    "sequential_gibbs_spins",
+    "exact_boltzmann_moments",
+    "exact_ising_moments",
+    "onsager_magnetization",
+    "lattice_energy_np",
+    "wolff_chain",
+]
+
+
+def boltzmann_energy(b: np.ndarray, J: np.ndarray, h: np.ndarray) -> float:
+    """E(b) = -1/2 b^T J b - h^T b for bits b in {0,1}^n."""
+    b = np.asarray(b, dtype=np.float64)
+    return float(-0.5 * b @ J @ b - h @ b)
+
+
+def ising_energy(s: np.ndarray, J: np.ndarray, h: np.ndarray) -> float:
+    """E(s) = -1/2 s^T J s - h^T s for spins s in {-1,+1}^n."""
+    s = np.asarray(s, dtype=np.float64)
+    return float(-0.5 * s @ J @ s - h @ s)
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-np.clip(x, -500, 500)))
+
+
+def _sequential_gibbs(J, h, n_samples, n_burnin, n_sweeps, state, update):
+    """n_burnin sweeps, then n_samples samples n_sweeps sweeps apart, of the
+    site-by-site heat-bath ``update(i, field)`` of ``state``; the field
+    excludes the diagonal coupling."""
+    n = J.shape[0]
+
+    def sweep():
+        for i in range(n):
+            field = J[i] @ state + h[i] - J[i, i] * state[i]
+            update(i, field)
+
+    for _ in range(n_burnin):
+        sweep()
+    out = np.empty((n_samples, n), dtype=np.float64)
+    for k in range(n_samples):
+        for _ in range(n_sweeps):
+            sweep()
+        out[k] = state
+    return out
+
+
+def sequential_gibbs_bits(rng: np.random.Generator, J: np.ndarray, h: np.ndarray,
+                          n_samples: int, temperature: float = 1.0, n_burnin: int = 100,
+                          n_sweeps: int = 10) -> np.ndarray:
+    """Sequential-scan heat-bath Gibbs over bits {0,1}^n:
+    P(b_i=1|rest) = sigmoid(((J b)_i + h_i)/T), the diagonal excluded.
+    Returns (n_samples, n) float64."""
+    state = (rng.random(J.shape[0]) < 0.5).astype(np.float64)
+
+    def update(i, field):
+        state[i] = 1.0 if rng.random() < _sigmoid(field / temperature) else 0.0
+
+    return _sequential_gibbs(J, h, n_samples, n_burnin, n_sweeps, state, update)
+
+
+def sequential_gibbs_spins(rng: np.random.Generator, J: np.ndarray, h: np.ndarray,
+                           n_samples: int, temperature: float = 1.0, n_burnin: int = 100,
+                           n_sweeps: int = 10) -> np.ndarray:
+    """Sequential heat-bath Gibbs over spins {-1,+1}^n:
+    P(s_i=+1|rest) = sigmoid(2 ((J s)_i + h_i)/T), the diagonal excluded.
+    Returns (n_samples, n) float64."""
+    state = np.where(rng.random(J.shape[0]) < 0.5, 1.0, -1.0)
+
+    def update(i, field):
+        state[i] = 1.0 if rng.random() < _sigmoid(2.0 * field / temperature) else -1.0
+
+    return _sequential_gibbs(J, h, n_samples, n_burnin, n_sweeps, state, update)
 
 
 def _enumerate_moments(states: np.ndarray, J, h, temperature):
@@ -64,6 +141,18 @@ def onsager_magnetization(T: float, J: float = 1.0) -> float:
     if T >= Tc:
         return 0.0
     return float((1.0 - np.sinh(2.0 * J / T) ** -4) ** 0.125)
+
+
+def lattice_energy_np(s: np.ndarray, J: float = 1.0, h: float = 0.0,
+                      periodic: bool = True) -> float:
+    """Energy of a 2-D Ising lattice with uniform J (right and down bonds)
+    and field h."""
+    s = np.asarray(s, dtype=np.float64)
+    if periodic:
+        bond = np.sum(s * np.roll(s, -1, axis=-1)) + np.sum(s * np.roll(s, -1, axis=-2))
+    else:
+        bond = np.sum(s[:, :-1] * s[:, 1:]) + np.sum(s[:-1, :] * s[1:, :])
+    return float(-J * bond - h * np.sum(s))
 
 
 def wolff_chain(seed: int, L: int, T: float, n_steps: int, J: float = 1.0,

@@ -50,6 +50,7 @@ from tsu_tpu_torch.ops.checkerboard import (
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_key
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweep, sigmoid_table16
 from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep
+from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.parallel.mesh import Mesh
 from tsu_tpu_torch.rng import as_generator
@@ -422,7 +423,10 @@ def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_sample
     snapshot when it exists (and starts afresh when it does not), so the
     resumed run returns exactly what the uninterrupted one would; the file
     is the same for any number of processes, so a run snapshotted on N
-    processes resumes on M.
+    processes resumes on M. The resumed call may ask for more samples than
+    the killed one (a longer horizon): it keeps the snapshot's samples and
+    runs the rest. Fewer samples than the snapshot holds raise
+    ``ConfigurationError``.
     """
     R, C = lattice0.shape
     grid, fused = _route(mesh, R, C // 2, axis_name, col_axis, fused, None)
@@ -444,9 +448,13 @@ def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_sample
         st = restore_state(checkpoint_path, {
             "base": 0, "red": red, "black": black, "done": 0, "ms": ms, "es": es})
         run["base"], done = st["base"], st["done"]
+        if done > n_samples:
+            raise ConfigurationError(
+                f"the snapshot at {checkpoint_path} holds {done} samples; a resumed run "
+                f"needs n_samples >= {done}, got {n_samples}")
         reds, blacks = _scatter(st["red"], grid), _scatter(st["black"], grid)
-        ms.copy_(st["ms"])
-        es.copy_(st["es"])
+        ms[:done] = st["ms"][:done]
+        es[:done] = st["es"][:done]
     else:
         reds, blacks = _run_sweeps(grid, reds, blacks, range(n_burnin), **run)
     finished = done

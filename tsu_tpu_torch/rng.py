@@ -74,6 +74,27 @@ def fold_seed(*components: int) -> int:
     return to_int32(h)
 
 
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """The low 32 bits of a * m for a uint32 ``a`` held in int64."""
+    return ((a & 0xFFFF) * m + ((((a >> 16) * m) & 0xFFFF) << 16)) & MASK32
+
+
+def fold_seed_tensor(*components) -> torch.Tensor:
+    """:func:`fold_seed` element by element on the device: components are
+    ints or broadcast-compatible int64 tensors; returns the int32 stream
+    ids as an int64 tensor."""
+    h = torch.tensor(0x9E3779B9, dtype=torch.int64)
+    for v in components:
+        v = torch.as_tensor(v, dtype=torch.int64)
+        h = (h.to(v.device) + (v & MASK32)) & MASK32
+        h = h ^ (h >> 16)
+        h = _mul32(h, 0x85EBCA6B)
+        h = h ^ (h >> 13)
+        h = _mul32(h, 0xC2B2AE35)
+        h = h ^ (h >> 16)
+    return ((h + 2**31) & MASK32) - 2**31
+
+
 def sweep_keys(seeds, sweeps) -> torch.Tensor:
     """Keys ``(fold_seed(seed), sweep)`` of the batched fused sweep for
     broadcast-compatible integer arrays ``seeds`` and ``sweeps``, as a

@@ -23,9 +23,11 @@ number of sites, so the rung spacing has to be built for the system:
 through one batched bond-kernel launch per half-sweep, the best energy per
 replica slot is tracked on the device, copies of the ladder exchange
 clusters by Houdayer moves, and a batched quench descends every slot's best
-state. All host randomness (initial planes, stream ids, swap uniforms,
-Houdayer seed sites) is drawn from a CPU ``torch.Generator`` before the
-loops, so a seed gives the same search on every device.
+state. The initial planes and a stream base come from a CPU
+``torch.Generator``; iteration t's stream ids, swap uniforms and Houdayer
+seed sites are Philox words under (fold_seed(base, t)), made on the device
+a block of iterations at a time, so a seed gives the same search on every
+device and iteration t's draws do not depend on the horizon ``n_iters``.
 """
 
 from __future__ import annotations
@@ -37,13 +39,17 @@ import numpy as np
 import torch
 from scipy.special import erfcinv, log_ndtr, ndtr
 
+from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.ops.checkerboard import wrap_halos
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_sweep_keys
-from tsu_tpu_torch.rng import as_generator
+from tsu_tpu_torch.rng import as_generator, fold_seed, fold_seed_tensor, philox_words
 from tsu_tpu_torch.checkpoint import checkpoint_exists, restore_state, save_state
 from tsu_tpu_torch.samplers.tempering import _BondPlaneOps, _swap_permutation
 
 GROWTH_CHECK = 16   # Houdayer cluster-growth steps between fixed-point tests
+SEARCH_STREAM = 2   # the search's stream scheme, recorded in its snapshots
+DRAW_ITERS = 256    # iterations whose draws are made in one go
+_ITERATION, _QUENCH = 0, 1   # Philox key1 of an iteration's words and of the quench's
 
 
 def predict_swap_acceptance(beta1: float, beta2: float,
@@ -336,6 +342,43 @@ def houdayer_move(seed, r1, b1, r2, b2, *, periodic: bool = True):
     return _houdayer(u, r1, b1, r2, b2, periodic)
 
 
+def _iteration_draws(base: int, t0: int, t1: int, B: int, C: int, R: int, n_hd: int,
+                     device):
+    """The draws of iterations t0..t1-1 of the search: iteration t's are the
+    Philox words at counters (0, q) under key (fold_seed(base, t), 0),
+    whatever the horizon. Returns the K5 stream ids (T, B) in [0, 2^30),
+    the swap uniforms (T, C, R) and the Houdayer uniforms (T, n_hd), float32
+    in [0, 1) on a 2^-24 grid."""
+    t = torch.arange(t0, t1, device=device)
+    key0 = fold_seed_tensor(base, t)[:, None, None]
+    words = philox_words(key0, _ITERATION, 1, B + C * R + n_hd, device)[:, 0]
+    u = (words[:, B:] >> 8).to(torch.float32) * 2.0**-24
+    return words[:, :B] & (2**30 - 1), u[:, :C * R].reshape(-1, C, R), u[:, C * R:]
+
+
+def _bond_keys(seeds: torch.Tensor, n_sweeps: int) -> torch.Tensor:
+    """``bond_sweep_keys`` on the device: stream ids (T, B) give the keys
+    (fold_seed(seed_b), 2k + colour), (T, n_sweeps, 2, B, 2) int32."""
+    T, B = seeds.shape
+    folded = fold_seed_tensor(seeds)[:, None, None, :].expand(T, n_sweeps, 2, B)
+    k = torch.arange(n_sweeps, device=seeds.device)[:, None]
+    counters = (2 * k + torch.arange(2, device=seeds.device))[None, :, :, None]
+    return torch.stack([folded, counters.expand(T, n_sweeps, 2, B)], dim=-1).to(torch.int32)
+
+
+def _check_stream(path: str):
+    """Raise unless the snapshot at ``path`` was written under this search's
+    stream scheme."""
+    try:
+        scheme = restore_state(path, {"stream": 0})["stream"]
+    except KeyError:
+        scheme = None
+    if scheme != SEARCH_STREAM:
+        raise ConfigurationError(
+            f"the snapshot at {path} was written under another stream scheme (draws made up "
+            "front, depending on n_iters); it cannot be continued: start the search afresh")
+
+
 def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
                            n_sweeps: int = 1, swap_interval: int = 1, n_copies: int = 1,
                            houdayer_every: int = 0, houdayer_frac: float = 0.5,
@@ -357,18 +400,23 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     can be lost there); afterwards every slot's best state descends through a
     batched quench to ``quench_T_final`` and the lowest is returned.
 
-    ``seed``: an int or a CPU ``torch.Generator``; the initial planes, the
-    stream ids, swap uniforms and Houdayer uniforms of every iteration and
-    the quench's stream ids are drawn from it up front. ``chunk_iters``
-    has no effect here (the reference's launch granularity; its stream,
-    like this one, does not depend on it).
+    ``seed``: an int or a CPU ``torch.Generator``, from which the initial
+    planes and then the stream base are drawn. Iteration t draws its K5
+    stream ids, swap uniforms and Houdayer uniforms from Philox under
+    fold_seed(base, t) alone, as the reference keys it by fold_in(key, t);
+    the quench draws under fold_seed(base, n_iters) with its own key. So
+    the first t iterations are the same for any ``n_iters`` > t, and
+    ``chunk_iters`` has no effect here (the reference's launch granularity;
+    its stream, like this one, does not depend on it).
 
     ``checkpoint_path`` snapshots the search (the replica planes, the best
-    planes and energies, the swap counts and the iterations done) every
-    ``checkpoint_every`` iterations and after the last; ``resume=True``
-    continues from that snapshot, when it exists. The draws are made up
-    front, so a resumed call with the same seed and arguments returns
-    exactly what the uninterrupted one would. Returns the reference's dict.
+    planes and energies, the swap counts, the iterations done, the stream
+    base and the stream scheme) every ``checkpoint_every`` iterations and
+    after the last; ``resume=True`` continues from that snapshot, when it
+    exists, so a resumed call with the same seed returns exactly what the
+    uninterrupted one would, also with a larger ``n_iters`` than the killed
+    call's. A snapshot of another stream scheme raises
+    ``ConfigurationError``. Returns the reference's dict.
     """
     del chunk_iters
     gen = as_generator(seed)
@@ -384,18 +432,15 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     n_pairs = C // 2
     hd_rungs = max(1, int(round(R * houdayer_frac)))
     use_houdayer = houdayer_every > 0 and n_pairs > 0
-    n_moves = n_iters // houdayer_every if use_houdayer else 0
+    n_hd = n_pairs * hd_rungs if use_houdayer else 0
 
     reds, blacks = ops.init_planes(gen, B)
-    seeds = torch.randint(0, 2**30, (n_iters, B), generator=gen).numpy()
-    swap_u = torch.rand((n_iters, C, R), generator=gen).to(dev)
-    hd_u = torch.rand((n_moves, n_pairs * hd_rungs), generator=gen).to(dev)
-    keys = bond_sweep_keys(seeds, n_sweeps).to(dev)
+    base = int(torch.randint(0, 2**31, (), generator=gen))
     # Slots of rung j of copies 2k (idx1) and 2k+1 (idx2), j < hd_rungs.
     idx1 = (2 * R * torch.arange(n_pairs)[:, None] + torch.arange(hd_rungs)).reshape(-1).to(dev)
     idx2 = idx1 + R
     touched = torch.cat([idx1, idx2])
-    base = (R * torch.arange(C, device=dev))[:, None]
+    offsets = (R * torch.arange(C, device=dev))[:, None]
 
     best_r, best_b = reds, blacks
     best_e = ops.energy_planes(reds, blacks)
@@ -403,28 +448,35 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     att_p = torch.zeros_like(acc_p)
     done = 0
     if resume and checkpoint_path is not None and checkpoint_exists(checkpoint_path):
+        _check_stream(checkpoint_path)
         st = restore_state(checkpoint_path, {
             "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
-            "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": 0})
+            "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": 0, "base": 0})
         reds, blacks, best_r, best_b = st["reds"], st["blacks"], st["best_r"], st["best_b"]
         best_e, acc_p, att_p, done = st["best_e"], st["acc_p"], st["att_p"], st["done"]
+        base = st["base"]
     for t in range(done, n_iters):
-        reds, blacks = ops.sweep_keyed(reds, blacks, keys[t], modes)
+        j = (t - done) % DRAW_ITERS
+        if j == 0:
+            seeds, swap_u, hd_u = _iteration_draws(base, t, min(t + DRAW_ITERS, n_iters),
+                                                   B, C, R, n_hd, dev)
+            keys = _bond_keys(seeds, n_sweeps)
+        reds, blacks = ops.sweep_keyed(reds, blacks, keys[j], modes)
         e = ops.energy_planes(reds, blacks)
         better = (e < best_e)[:, None, None]
         best_r = torch.where(better, reds, best_r)
         best_b = torch.where(better, blacks, best_b)
         best_e = torch.minimum(e, best_e)
         if (t + 1) % swap_interval == 0:
-            perm, acc, att = _swap_permutation(swap_u[t], e.view(C, R), betas,
+            perm, acc, att = _swap_permutation(swap_u[j], e.view(C, R), betas,
                                                (t // swap_interval) % 2)
-            perm = (perm + base).reshape(-1)
+            perm = (perm + offsets).reshape(-1)
             reds, blacks = reds[perm], blacks[perm]
             acc_p += acc.sum(dim=0, dtype=torch.int32)
             att_p += att * C
         if use_houdayer and (t + 1) % houdayer_every == 0:
-            r1, b1, r2, b2 = _houdayer(hd_u[(t + 1) // houdayer_every - 1], reds[idx1],
-                                       blacks[idx1], reds[idx2], blacks[idx2], periodic)
+            r1, b1, r2, b2 = _houdayer(hd_u[j], reds[idx1], blacks[idx1], reds[idx2],
+                                       blacks[idx2], periodic)
             reds = reds.index_put((idx1,), r1).index_put((idx2,), r2)
             blacks = blacks.index_put((idx1,), b1).index_put((idx2,), b2)
             # A move keeps E1 + E2 but may lower one replica: record it now,
@@ -439,15 +491,16 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
                 and ((t + 1) % checkpoint_every == 0 or t + 1 == n_iters)):
             save_state(checkpoint_path, {
                 "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
-                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": t + 1})
+                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": t + 1,
+                "base": base, "stream": SEARCH_STREAM})
 
     if quench_sweeps > 0:
         # Every slot's best state descends to its local minimum; B restarts
         # for the price of one batched schedule.
         qsched = np.geomspace(float(temps_np[0]), quench_T_final, quench_sweeps).astype(np.float32)
         qmodes = ops.modes(np.repeat(qsched[:, None], B, axis=1))
-        qkeys = bond_sweep_keys(torch.randint(0, 2**30, (quench_sweeps, B), generator=gen)
-                                .numpy(), 1).to(dev)
+        qseeds = philox_words(fold_seed(base, n_iters), _QUENCH, quench_sweeps, B, dev)
+        qkeys = _bond_keys(qseeds & (2**30 - 1), 1)
         qr, qb = best_r, best_b
         for k in range(quench_sweeps):
             qr, qb = ops.sweep_keyed(qr, qb, qkeys[k], {n: m[k:k + 1] for n, m in qmodes.items()})

@@ -56,17 +56,23 @@ def trials(step, size, per_call, calls, n_trials, device, log, what) -> float:
     return float(np.median(rates))
 
 
+def headline_rate(size: int = 4096, sweeps: int = 5000, calls: int = 3, n_trials: int = 3,
+                  device=None, log=print) -> float:
+    """The headline: K1's flips/s at size^2 through ``fused_sweeps``, the
+    median of n_trials trials of ``calls`` calls of ``sweeps`` sweeps."""
+    def fused_step(red, black, i, n, T):
+        return fused_sweeps(1 + i * 7919, red, black, T, n)
+
+    return trials(fused_step, size, sweeps, calls, n_trials, resolve_device(device), log,
+                  f"K1 fused_sweeps {size}^2 bf16, {sweeps} sweeps/call")
+
+
 def run(size: int = 4096, sweeps: int = 5000, ea_sweeps: int = 1000, calls: int = 3,
         n_trials: int = 3, device=None, log=print) -> dict:
     """The benchmark's JSON object."""
     device = resolve_device(device)
     log(card() if device.type == "cuda" else "cpu")
-
-    def fused_step(red, black, i, n, T):
-        return fused_sweeps(1 + i * 7919, red, black, T, n)
-
-    value = trials(fused_step, size, sweeps, calls, n_trials, device, log,
-                   f"K1 fused_sweeps {size}^2 bf16, {sweeps} sweeps/call")
+    value = headline_rate(size, sweeps, calls, n_trials, device, log)
     codes = ea_codes(size, device)
 
     def bond_step(red, black, i, n, T):
