@@ -257,7 +257,13 @@ Phases, each of which raises on failure:
     |M| > 0.5), bayesian_nn_demo (the band wider outside the data than inside)
     and hardware_projection (the rooflines and K1's rate measured in the
     run, 20,000 K1); an example that raises, fails its check or launches
-    other kernels fails the phase.
+    other kernels fails the phase. checkpoint_resume's PT search must
+    snapshot as the reference does: once in the killed run (at 30) and
+    twice in the resumed one (at 60 and 90). Last, one PT search of 256^2
+    +-J, 32 rungs x 2 copies, 1,000 iterations, with a checkpoint path, is
+    timed at the default cadence (2 snapshots) and at one snapshot an
+    iteration (1,000), with the bytes of one snapshot; the two results must
+    be equal.
 
 A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:" and a
 "slice 9:" JSON log line carry those phases' numbers.
@@ -2105,7 +2111,7 @@ def phase_resume(dev, workdir):
         "pt_ground_state_search 64^2 ±J, 40 iterations, a snapshot every 10",
         lambda p, r: pt_ground_state_search(
             3, Jh, Jv, temperatures=np.geomspace(0.3, 2.0, 16), n_iters=40, n_copies=2,
-            houdayer_every=5, quench_sweeps=16, checkpoint_path=p, checkpoint_every=10,
+            houdayer_every=5, quench_sweeps=16, checkpoint_path=p, chunk_iters=10,
             resume=r, device=dev),
         tempering_ladder, os.path.join(workdir, "ladder"),
         lambda a, b: a["best_energy"] == b["best_energy"] and np.array_equal(
@@ -3367,6 +3373,74 @@ def phase_multiprocess(dev, workdir):
 # -- slice 9: the examples -------------------------------------------------------
 
 
+KILLED_PT_ITERS = 30       # checkpoint_resume's killed PT search, resumed to 90 in chunks of 30
+SNAPSHOT_SEARCH = dict(n_iters=1000, n_sweeps=1, n_copies=2)   # 32 rungs x 2 copies at 256^2
+
+
+@contextlib.contextmanager
+def recorded_snapshots():
+    """Record the iterations done of every snapshot the PT search writes
+    inside (``tempering_ladder.save_state``, which it calls by that name)."""
+    done, save = [], tempering_ladder.save_state
+
+    def record(path, state, *args, **kwargs):
+        done.append(int(state["done"]))
+        return save(path, state, *args, **kwargs)
+
+    tempering_ladder.save_state = record
+    try:
+        yield done
+    finally:
+        tempering_ladder.save_state = save
+
+
+def pt_snapshot_walls(dev, workdir) -> dict:
+    """Phase 42's last part: one PT ground-state search with a checkpoint
+    path at a user's size (256^2 +-J, 32 rungs x 2 copies = 64 replicas,
+    1,000 iterations of one sweep, the default quench of 64 sweeps), at the
+    default cadence (chunks of 500 iterations: 2 snapshots) and at one
+    snapshot an iteration (chunk_iters=1, checkpoint_every=1: 1,000, the
+    cadence before it counted chunks). Each wall is on the host clock with
+    the card synchronised before and after, after a short warm-up search;
+    both give the same result, each launches only K5 (2 a sweep)."""
+    gen = torch.Generator().manual_seed(16)
+    Jh, Jv = (torch.where(torch.rand(PT_SHAPE, generator=gen) < 0.5, 1.0, -1.0).numpy()
+              for _ in range(2))
+    kw = dict(temperatures=np.geomspace(0.4, 2.0, 32), device=dev, **SNAPSHOT_SEARCH)
+    pt_ground_state_search(5, Jh, Jv, **{**kw, "n_iters": 10})
+    out, results = {}, []
+    for label, cadence, n_snapshots in (("default", {}, 2),
+                                        ("every_iteration", dict(chunk_iters=1,
+                                                                 checkpoint_every=1), 1000)):
+        path = os.path.join(workdir, f"pt_{label}")
+        with recorded_snapshots() as done:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = pt_ground_state_search(5, Jh, Jv, checkpoint_path=path, **kw, **cadence)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = counts()
+        out[label] = {"wall_s": wall, "snapshots": len(done),
+                      "snapshot_bytes": os.path.getsize(path), "launches": launch_counts(got)}
+        log(f"phase 42: PT search 256^2 x 64 replicas x 1,000 iterations, {label} cadence: "
+            f"{wall:.3f} s, {len(done)} snapshots of {out[label]['snapshot_bytes']} bytes, "
+            f"launches {launch_counts(got)}")
+        if len(done) != n_snapshots or got != expect(0, 0, 0, 2 * (1000 + 64)):
+            raise AssertionError(f"PT search, {label} cadence: {len(done)} snapshots (expected "
+                                 f"{n_snapshots}), launches {launch_counts(got)}")
+        results.append(res)
+    a, b = results
+    if not (a["best_energy"] == b["best_energy"]
+            and np.array_equal(a["best_state"], b["best_state"])
+            and np.array_equal(a["pair_attempts"], b["pair_attempts"])):
+        raise AssertionError("the PT search's result depends on its snapshot cadence")
+    out["saved_s"] = out["every_iteration"]["wall_s"] - out["default"]["wall_s"]
+    log(f"phase 42: the default cadence saves {out['saved_s']:.3f} s of "
+        f"{out['every_iteration']['wall_s']:.3f} (998 snapshots fewer), the same result")
+    return out
+
+
 def phase_examples(dev, workdir):
     """Phase 42: the seven examples of tsu_tpu_torch.examples on the card at
     their default sizes, each from zeroed counts, with its wall, its result
@@ -3415,16 +3489,28 @@ def phase_examples(dev, workdir):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        res = run()
+        with recorded_snapshots() as pt_done:
+            res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = counts()
+        if name == "checkpoint_resume":
+            killed = [d for d in pt_done if d <= KILLED_PT_ITERS]
+            resumed = pt_done[len(killed):]
+            log(f"phase 42: checkpoint_resume's PT-search snapshots: the killed run "
+                f"{len(killed)} (done {killed}), the resumed run {len(resumed)} (done "
+                f"{resumed}); the reference's cadence gives 1 and 2")
+            if (killed, resumed) != ([30], [60, 90]):
+                raise AssertionError(f"checkpoint_resume's PT search snapshotted at {pt_done}, "
+                                     "not at [30] and [60, 90] as the reference does")
+            numbers["pt_snapshots"] = {"killed": killed, "resumed": resumed}
         log(f"example {name}: {wall:.3f} s; {res['line']}; launches {launch_counts(got)}")
         if not check(res, got):
             raise AssertionError(f"example {name}: its check failed ({res['line']}; launches "
                                  f"{launch_counts(got)})")
         launches[name] = got
         numbers[name] = {"wall_s": wall, "line": res["line"], "launches": launch_counts(got)}
+    numbers["pt_snapshot_walls"] = pt_snapshot_walls(dev, workdir)
     numbers["seconds"] = time.perf_counter() - t_phase
     return launches, numbers
 
@@ -3601,7 +3687,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as workdir:
         slice9, numbers9 = phase_examples(dev, workdir)
-    log("phase 42: the seven examples ran on the card at their default sizes (K1, K4, K5)")
+    log("phase 42: the seven examples ran on the card at their default sizes (K1, K4, K5); "
+        "the PT search snapshotted as the reference does, and was timed at two cadences")
     log(f"phase 42 added {numbers9['seconds']:.1f} s")
     log("slice 9: " + json.dumps({**numbers9, "card": name}, default=float))
 

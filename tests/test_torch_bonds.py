@@ -27,6 +27,7 @@ from tsu_tpu_torch.ops.checkerboard import merge_checkerboard, split_checkerboar
 from tsu_tpu_torch.ops.checkerboard_bonds import (  # noqa: E402
     checkerboard_sweeps_bonds,
     color_bond_weights,
+    dense_from_bonds,
     lattice_energy_bonds,
     lattice_energy_bonds_planes,
     pack_bond_codes,
@@ -324,3 +325,18 @@ def test_halfsweep_rejects_misshapen_operands(kw):
         bond_halfsweep(args["other"], args["weights"], update_red=True,
                        temperature=args["temperature"], table=args["table"],
                        uniforms=args["uniforms"])
+
+
+@pytest.mark.parametrize("shape", [(4, 4), (5, 3), (8, 8), (2, 2), (1, 3)])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("kind", ["pm1", "gauss"])
+def test_dense_from_bonds_equals_jax(kind, periodic, shape):
+    """The dense coupling matrix equals the JAX package's bit for bit
+    (float64), from numpy bonds and from tensors; the 2 x 2 and 1 x 3
+    lattices add two bonds into one entry, or a bond onto the diagonal."""
+    Jh, Jv, _ = _bonds(11, kind, shape)
+    ref = jbonds.dense_from_bonds(Jh, Jv, periodic=periodic)
+    for bonds in ((Jh, Jv), (torch.from_numpy(Jh), torch.from_numpy(Jv))):
+        J = dense_from_bonds(*bonds, periodic=periodic)
+        assert J.dtype == np.float64 and J.shape == ref.shape
+        np.testing.assert_array_equal(J, ref)

@@ -128,6 +128,24 @@ def test_the_native_build_lands_under_build(monkeypatch):
     assert path.name.startswith("graph_tools-") and path.suffix == ".so"
 
 
+def test_native_available_says_whether_the_library_builds_and_loads(monkeypatch, tmp_path):
+    """A bool that agrees with whether library() raises, here and without a
+    compiler or a build to load; a query only, so the entry points still
+    raise there."""
+    try:
+        native.library()
+        builds = True
+    except (RuntimeError, OSError):
+        builds = False
+    assert native.native_available() is builds
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    native.library.cache_clear()
+    assert native.native_available() is False
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        native.cut_value_csr(*native.csr_from_dense(np.ones((2, 2))), np.ones(2))
+
+
 def _anneal_args(seed, n, m):
     edges, _ = _graph(seed, n, m, loops=False)
     idx, w = ell_from_edges(n, edges, np.ones(len(edges)))

@@ -12,12 +12,16 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from tsu_tpu.models.ising import IsingGrid as JaxIsingGrid  # noqa: E402
-from tsu_tpu.ops.checkerboard_bonds import dense_from_bonds  # noqa: E402
+from tsu_tpu.ops import checkerboard_bonds as jbonds  # noqa: E402
 from tsu_tpu.oracle import exact_ising_moments  # noqa: E402
 from tsu_tpu.samplers import annealing as jann  # noqa: E402
 from tsu_tpu.samplers.tempering import parallel_tempering_bonds as jax_pt_bonds  # noqa: E402
 from tsu_tpu_torch import ConfigurationError, IsingConfig, IsingGrid  # noqa: E402
-from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds  # noqa: E402
+from tsu_tpu_torch.ops.checkerboard_bonds import (  # noqa: E402
+    anneal_lattice_bonds,
+    dense_from_bonds,
+    lattice_energy_bonds,
+)
 from tsu_tpu_torch.samplers import (  # noqa: E402
     anneal_spin_glass,
     discrete_table_applicable,
@@ -151,6 +155,30 @@ def test_anneal_reaches_the_exact_ground_state():
     Jh, Jv = _pm1(5, 4)
     _, e = anneal_spin_glass(0, Jh, Jv, n_steps=300, n_restarts=2, device=CPU)
     assert e == _ground_energy(Jh, Jv)
+
+
+@pytest.mark.parametrize("kind,periodic", [("pm1", True), ("pm1", False), ("gauss", True)])
+def test_anneal_lattice_bonds_reaches_the_ground_state_as_jax_does(kind, periodic):
+    """One anneal of a 4x4 lattice, 600 sweeps geometric from T = 5 to 0.05
+    (the reference's schedule): the port (discrete mode for ±J, continuous
+    for Gaussian bonds) and the JAX package both end in the exact ground
+    state, and each returns the energy of the state it returns."""
+    rng = np.random.default_rng(13)
+    if kind == "pm1":
+        Jh, Jv = _pm1(13, 4)
+    else:
+        Jh, Jv = rng.normal(0, 1, (2, 4, 4)).astype(np.float32)
+    lat0 = np.where(rng.random((4, 4)) < 0.5, 1.0, -1.0).astype(np.float32)
+    exact = _ground_energy(Jh, Jv, periodic)
+    state, e = anneal_lattice_bonds(3, torch.from_numpy(lat0), Jh, Jv, n_steps=600,
+                                    periodic=periodic)
+    assert state.shape == (4, 4) and state.dtype == torch.float32 and e.dtype == torch.float64
+    assert float(e) == float(lattice_energy_bonds(state, Jh, Jv, periodic=periodic))
+    np.testing.assert_allclose(float(e), exact, rtol=0, atol=1e-9)
+    j_state, j_e = jbonds.anneal_lattice_bonds(jax.random.PRNGKey(3), jnp.asarray(lat0), Jh, Jv,
+                                               n_steps=600, periodic=periodic)
+    assert np.asarray(j_state).shape == (4, 4)
+    np.testing.assert_allclose(float(j_e), exact, rtol=0, atol=1e-4)
 
 
 def test_find_ground_state_with_bonds_and_seed_reproducibility():

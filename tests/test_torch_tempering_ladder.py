@@ -9,10 +9,12 @@ pytest.importorskip("jax")
 import torch  # noqa: E402
 from scipy import ndimage  # noqa: E402
 
-from tsu_tpu.ops.checkerboard_bonds import dense_from_bonds  # noqa: E402
 from tsu_tpu.samplers import tempering_ladder as jladder  # noqa: E402
 from tsu_tpu_torch.ops.checkerboard import merge_checkerboard, split_checkerboard  # noqa: E402
-from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds  # noqa: E402
+from tsu_tpu_torch.ops.checkerboard_bonds import (  # noqa: E402
+    dense_from_bonds,
+    lattice_energy_bonds,
+)
 from tsu_tpu_torch.samplers import (  # noqa: E402
     build_tempering_ladder,
     houdayer_move,
@@ -208,8 +210,8 @@ def test_pt_ground_state_search_records_a_best_energy_lowered_by_houdayer(monkey
 def test_pt_ground_state_search_killed_and_resumed_equals_uninterrupted(
         tmp_path, monkeypatch, killed_after, n_copies):
     """Mirror of the JAX package's resume test: the search killed after a
-    snapshot and resumed from it returns the uninterrupted search's best
-    state and energy, bit for bit."""
+    snapshot (chunks of 20 iterations, one snapshot each) and resumed from it
+    returns the uninterrupted search's best state and energy, bit for bit."""
     from tsu_tpu_torch.samplers import tempering_ladder as tl
 
     Jh, Jv = _pm1(9, 8)
@@ -228,9 +230,9 @@ def test_pt_ground_state_search_killed_and_resumed_equals_uninterrupted(
 
     monkeypatch.setattr(tl, "save_state", dying_save)
     with pytest.raises(RuntimeError, match="killed"):
-        pt_ground_state_search(4, Jh, Jv, checkpoint_path=path, checkpoint_every=20, **kw)
+        pt_ground_state_search(4, Jh, Jv, checkpoint_path=path, chunk_iters=20, **kw)
     monkeypatch.setattr(tl, "save_state", real_save)
-    resumed = pt_ground_state_search(4, Jh, Jv, checkpoint_path=path, checkpoint_every=20,
+    resumed = pt_ground_state_search(4, Jh, Jv, checkpoint_path=path, chunk_iters=20,
                                      resume=True, **kw)
     assert resumed["best_energy"] == full["best_energy"]
     assert np.array_equal(resumed["best_state"], full["best_state"])
@@ -275,7 +277,7 @@ def test_pt_ground_state_search_first_iterations_do_not_depend_on_the_horizon(
     from tsu_tpu_torch.samplers import tempering_ladder as tl
 
     Jh, Jv, kw = _checkpoint_resume_pt_kw()
-    kw.update(checkpoint_every=30, quench_sweeps=0, n_copies=2, houdayer_every=5)
+    kw.update(chunk_iters=30, quench_sweeps=0, n_copies=2, houdayer_every=5)
     short, long_ = str(tmp_path / "pt30"), str(tmp_path / "pt90")
     pt_ground_state_search(3, Jh, Jv, n_iters=30, checkpoint_path=short, **kw)
     real_save = tl.save_state
@@ -327,3 +329,76 @@ def test_reference_example_resumes_to_a_longer_horizon(tmp_path, monkeypatch):
     monkeypatch.setattr(mod.tempfile, "mkdtemp", lambda prefix="": str(tmp_path))
     mod.main()
     assert (tmp_path / "lattice_ck_obs.npz").exists()
+
+
+def _record_snapshots(monkeypatch):
+    """Record the iterations done of every snapshot that the port's and the
+    reference's PT search write (both still write them): the port's
+    module-level ``save_state``, and ``tsu_tpu.checkpoint.save_state``,
+    which the reference imports when it saves."""
+    import tsu_tpu.checkpoint as jcheckpoint
+    from tsu_tpu_torch.samplers import tempering_ladder as tl
+
+    done = {"port": [], "reference": []}
+
+    def recording(side, save):
+        def record(path, state, *args, **kwargs):
+            done[side].append(int(state["done"]))
+            return save(path, state, *args, **kwargs)
+        return record
+
+    monkeypatch.setattr(tl, "save_state", recording("port", tl.save_state))
+    monkeypatch.setattr(jcheckpoint, "save_state", recording("reference", jcheckpoint.save_state))
+    return done
+
+
+def _search_both(tmp_path, **kw):
+    """The port's and the reference's PT search of one 16^2 ±J instance, 4
+    rungs, no quench, each snapshotting to its own file under tmp_path."""
+    Jh, Jv = _pm1(12, 16)
+    kw.update(temperatures=np.geomspace(0.5, 2.0, 4), n_sweeps=1, quench_sweeps=0)
+    port = pt_ground_state_search(7, Jh, Jv, checkpoint_path=str(tmp_path / "port"),
+                                  device="cpu", **kw)
+    ref = jladder.pt_ground_state_search(7, Jh, Jv, checkpoint_path=str(tmp_path / "ref"),
+                                         use_pallas=False, **kw)
+    return port, ref
+
+
+@pytest.mark.parametrize("n_iters,chunk_iters,checkpoint_every,expected", [
+    (1000, None, 1, [500, 1000]), (90, 30, 1, [30, 60, 90]), (90, 20, 2, [40, 80, 90]),
+    (100, 30, 1, [30, 60, 90, 100]), (50, None, 0, [])])
+def test_pt_ground_state_search_snapshots_as_the_reference_does(
+        tmp_path, monkeypatch, n_iters, chunk_iters, checkpoint_every, expected):
+    """One snapshot every checkpoint_every chunks of chunk_iters iterations
+    (500 by default with a checkpoint path) and one after the last, none
+    with checkpoint_every 0: the same save_state calls, with the same
+    iterations done, as the reference."""
+    done = _record_snapshots(monkeypatch)
+    port, ref = _search_both(tmp_path, n_iters=n_iters, chunk_iters=chunk_iters,
+                             checkpoint_every=checkpoint_every)
+    assert done["port"] == done["reference"] == expected
+    assert port["iters_run"] == ref["iters_run"] == n_iters
+
+
+@pytest.mark.parametrize("chunk_iters,expected", [(None, [30, 90]), (30, [30, 60, 90])])
+def test_pt_ground_state_search_killed_and_resumed_snapshots_as_the_reference_does(
+        tmp_path, monkeypatch, chunk_iters, expected):
+    """A search killed at 30 iterations and resumed to 90 counts its chunks
+    from where the resumed call starts: the same snapshots as the
+    reference's, and a default chunk of min(n_iters, 500) iterations."""
+    done = _record_snapshots(monkeypatch)
+    _search_both(tmp_path, n_iters=30, chunk_iters=chunk_iters)
+    port, ref = _search_both(tmp_path, n_iters=90, chunk_iters=chunk_iters, resume=True)
+    assert done["port"] == done["reference"] == expected
+    assert port["iters_run"] == ref["iters_run"] == 90
+
+
+def test_pt_ground_state_search_reports_the_iterations_its_state_holds(tmp_path):
+    """A 90-iteration snapshot resumed with n_iters=30 runs nothing and
+    returns the 90-iteration state: both report 90, as after the run."""
+    port90, ref90 = _search_both(tmp_path, n_iters=90)
+    assert port90["iters_run"] == ref90["iters_run"] == 90
+    port, ref = _search_both(tmp_path, n_iters=30, resume=True)
+    assert port["iters_run"] == ref["iters_run"] == 90
+    assert port["best_energy"] == port90["best_energy"]
+    assert np.array_equal(port["best_state"], port90["best_state"])

@@ -28,10 +28,9 @@ from tsu_tpu_torch.models.lattice_sampler import (
     sample_chain,
     sample_grid,
     sample_grid_ensemble,
-    sample_lattice_bonds,
 )
 from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch
-from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds
+from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds, sample_lattice_bonds
 from tsu_tpu_torch.parallel.lattice import sharded_lattice_sample
 from tsu_tpu_torch.rng import as_generator
 from tsu_tpu_torch.samplers.annealing import (

@@ -7,9 +7,9 @@ temperature, one batched launch per sweep). Every even grid goes through the
 fused sweep (the CUDA kernel for a lattice on the card, its plain version for
 one on the CPU): the kernel takes any even R and C, so the JAX package's
 streaming path for R % 8 != 0 and its XLA ensemble branch have no
-counterpart here. ``sample_lattice_bonds``, the counterpart of
-``tsu_tpu/ops/checkerboard_bonds.py:sample_lattice_bonds``, samples a lattice
-with per-bond couplings on the bond half-sweep kernel.
+counterpart here. A lattice with per-bond couplings is sampled by
+``tsu_tpu_torch.ops.checkerboard_bonds.sample_lattice_bonds``, where the JAX
+package has it too.
 """
 
 from __future__ import annotations
@@ -24,18 +24,12 @@ from tsu_tpu_torch.ops.checkerboard import (
     plane_energy_batch,
     split_checkerboard,
 )
-from tsu_tpu_torch.ops.checkerboard_bonds import color_bond_weights, lattice_energy_bonds_planes
-from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
 from tsu_tpu_torch.ops.checkerboard_fused import (
     fused_sweeps,
     fused_sweeps_keyed,
     sigmoid_table16,
 )
-from tsu_tpu_torch.rng import sweep_keys, to_int32
-
-# Per-call seed stride: burn-in is call 0, sample block i is call 1 + i, and
-# each call restarts its in-call sweep counter.
-SEED_STRIDE = 1_000_033
+from tsu_tpu_torch.rng import SEED_STRIDE, sweep_keys, to_int32
 
 
 def sample_chain(generator: torch.Generator, lattice0: torch.Tensor, *,
@@ -117,49 +111,3 @@ def sample_grid_ensemble(generator: torch.Generator, lattices0: torch.Tensor,
                      + blacks.sum((-2, -1), dtype=torch.float64)) / (R * C)
         es[i - 1] = plane_energy_batch(reds, blacks, J=J, field=field, periodic=periodic)
     return {"magnetization": ms, "energy": es}
-
-
-def sample_lattice_bonds(generator: torch.Generator, lattice0: torch.Tensor, Jh, Jv, *,
-                         n_samples: int, temperature, field=0.0, n_burnin: int = 100,
-                         n_sweeps: int = 1, periodic: bool = True,
-                         collect: str = "states"):
-    """Boltzmann-sample a (R, C) lattice with per-bond couplings (Jh, Jv).
-
-    Sampling runs the bond kernel's continuous mode (exact sigmoid against
-    24-bit uniforms) on float32 planes, as the JAX package does; the
-    threshold table is the annealers' business. Call i (burn-in is call 0,
-    sample block i is call 1 + i) draws from the stream id
-    base + i * SEED_STRIDE, with base drawn from ``generator``.
-    collect="states": returns (n_samples, R, C) on lattice0's device, in
-    its dtype. collect="observables": returns ``{"magnetization",
-    "energy"}``, (n_samples,) float64 tensors, per-spin magnetization and
-    total energy.
-    """
-    if collect not in ("states", "observables"):
-        raise ValueError(f"collect must be 'states' or 'observables', got {collect!r}")
-    device = lattice0.device
-    weights = color_bond_weights(torch.as_tensor(Jh, dtype=torch.float32, device=device),
-                                 torch.as_tensor(Jv, dtype=torch.float32, device=device),
-                                 field, periodic)
-    base = int(torch.randint(0, 2**30, (), generator=generator))
-    red, black = split_checkerboard(lattice0.to(torch.float32))
-
-    def sweeps(i, red, black, n):
-        return checkerboard_sweeps_bonds_kernel(to_int32(base + i * SEED_STRIDE), red, black,
-                                                weights, temperature, n, periodic=periodic)
-
-    red, black = sweeps(0, red, black, n_burnin)
-    R, C = lattice0.shape
-    if collect == "states":
-        out = torch.empty((n_samples, R, C), dtype=lattice0.dtype, device=device)
-    else:
-        ms = torch.empty(n_samples, dtype=torch.float64, device=device)
-        es = torch.empty(n_samples, dtype=torch.float64, device=device)
-    for i in range(n_samples):
-        red, black = sweeps(1 + i, red, black, n_sweeps)
-        if collect == "states":
-            out[i] = merge_checkerboard(red, black)
-        else:
-            ms[i] = (red.sum(dtype=torch.float64) + black.sum(dtype=torch.float64)) / (R * C)
-            es[i] = lattice_energy_bonds_planes(red, black, weights, periodic=periodic)
-    return out if collect == "states" else {"magnetization": ms, "energy": es}

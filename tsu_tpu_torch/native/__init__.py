@@ -11,6 +11,7 @@ bound a caller gets.
 The library holds the host paths of small problems and the graph bounds:
 greedy local-search MAX-CUT, cut values, colouring conflicts, simulated
 annealing and heat-bath Gibbs sampling of a dense bit-Boltzmann (J, h).
+``native_available`` says whether the library builds and loads here.
 """
 
 from __future__ import annotations
@@ -81,6 +82,16 @@ def library() -> ctypes.CDLL:
                                 ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
                                 ctypes.c_uint64, f32p]
     return lib
+
+
+def native_available() -> bool:
+    """Whether the graph tools build and load on this machine. A query only:
+    every entry point still raises when they do not."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def csr_from_dense(W: np.ndarray):

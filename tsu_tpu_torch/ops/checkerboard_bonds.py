@@ -17,14 +17,20 @@ right), as ``torch.uint8`` (values 0..170).
 The hand-written bond kernels and their plain versions live in
 ``tsu_tpu_torch/ops/checkerboard_bonds_kernel.py``; the sweeps here draw
 their uniforms from a ``torch.Generator``, as the JAX module's XLA path
-draws from a key.
+draws from a key. ``sample_lattice_bonds`` and ``anneal_lattice_bonds`` run
+on those kernels (a lattice on the CPU on their plain versions); they import
+that module when called, since it imports this one. ``dense_from_bonds``
+gives the dense coupling matrix of the bonds, for exact enumeration.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from tsu_tpu_torch.ops.checkerboard import wrap_halos
+from tsu_tpu_torch.ops.checkerboard import merge_checkerboard, split_checkerboard, wrap_halos
+from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
+from tsu_tpu_torch.rng import SEED_STRIDE, to_int32
 
 
 def _color_site_cols(R: int, C: int, color: int, device):
@@ -147,3 +153,142 @@ def lattice_energy_bonds_planes(red, black, weights: dict, *, periodic: bool = T
     e = -(red * bond).sum(dims, dtype=torch.float64)
     return e - (w_red[4] * red).sum(dims, dtype=torch.float64) - (
         weights["black"][4] * black).sum(dims, dtype=torch.float64)
+
+
+def sample_lattice_bonds(generator: torch.Generator, lattice0: torch.Tensor, Jh, Jv, *,
+                         n_samples: int, temperature, field=0.0, n_burnin: int = 100,
+                         n_sweeps: int = 1, periodic: bool = True,
+                         collect: str = "states"):
+    """Boltzmann-sample a (R, C) lattice with per-bond couplings (Jh, Jv).
+
+    Sampling runs the bond kernel's continuous mode (exact sigmoid against
+    24-bit uniforms) on float32 planes, as the JAX package does; the
+    threshold table is the annealers' business. Call i (burn-in is call 0,
+    sample block i is call 1 + i) draws from the stream id
+    base + i * SEED_STRIDE, with base drawn from ``generator``.
+    collect="states": returns (n_samples, R, C) on lattice0's device, in
+    its dtype. collect="observables": returns ``{"magnetization",
+    "energy"}``, (n_samples,) float64 tensors, per-spin magnetization and
+    total energy.
+    """
+    from tsu_tpu_torch.ops.checkerboard_bonds_kernel import checkerboard_sweeps_bonds_kernel
+
+    if collect not in ("states", "observables"):
+        raise ValueError(f"collect must be 'states' or 'observables', got {collect!r}")
+    device = lattice0.device
+    weights = color_bond_weights(torch.as_tensor(Jh, dtype=torch.float32, device=device),
+                                 torch.as_tensor(Jv, dtype=torch.float32, device=device),
+                                 field, periodic)
+    base = int(torch.randint(0, 2**30, (), generator=generator))
+    red, black = split_checkerboard(lattice0.to(torch.float32))
+
+    def sweeps(i, red, black, n):
+        return checkerboard_sweeps_bonds_kernel(to_int32(base + i * SEED_STRIDE), red, black,
+                                                weights, temperature, n, periodic=periodic)
+
+    red, black = sweeps(0, red, black, n_burnin)
+    R, C = lattice0.shape
+    if collect == "states":
+        out = torch.empty((n_samples, R, C), dtype=lattice0.dtype, device=device)
+    else:
+        ms = torch.empty(n_samples, dtype=torch.float64, device=device)
+        es = torch.empty(n_samples, dtype=torch.float64, device=device)
+    for i in range(n_samples):
+        red, black = sweeps(1 + i, red, black, n_sweeps)
+        if collect == "states":
+            out[i] = merge_checkerboard(red, black)
+        else:
+            ms[i] = (red.sum(dtype=torch.float64) + black.sum(dtype=torch.float64)) / (R * C)
+            es[i] = lattice_energy_bonds_planes(red, black, weights, periodic=periodic)
+    return out if collect == "states" else {"magnetization": ms, "energy": es}
+
+
+def _in_pm1_or_zero(J: torch.Tensor) -> bool:
+    return bool(((J == -1) | (J == 0) | (J == 1)).all())
+
+
+def discrete_table_applicable(Jh, Jv, field) -> bool:
+    """True when the ±J threshold-table path is exact: every bond in
+    {-1, 0, +1} and a zero field, so the local field stays on the integers
+    -4..4 that the 9-entry table covers. A non-zero field, even an integer
+    one, moves it to ±5, off the table."""
+    return (_in_pm1_or_zero(torch.as_tensor(Jh)) and _in_pm1_or_zero(torch.as_tensor(Jv))
+            and float(field) == 0.0)
+
+
+def anneal_lattice_bonds(seed: int, lattice0: torch.Tensor, Jh, Jv, *, T_initial=5.0,
+                         T_final=0.05, n_steps: int = 1000, field=0.0, periodic: bool = True,
+                         schedule=None, track_every: int = 1):
+    """Simulated annealing of lattice0 with per-bond couplings, one sweep of
+    the bond half-sweep kernel per temperature of ``schedule`` (default
+    n_steps temperatures geometric from T_initial to T_final), the best
+    state tracked every ``track_every`` sweeps. Returns (best (R, C) float32
+    lattice, its ``lattice_energy_bonds`` as a float64 0-d tensor), both on
+    lattice0's device.
+
+    Bonds in {-1, 0, +1} with a zero field take the discrete mode (code
+    planes, bfloat16 spins, a 24-bit table per sweep), others the continuous
+    one (float32 weights and spins). Chunk i of ``track_every`` sweeps draws
+    from the stream id seed + i * SEED_STRIDE, its half-sweeps keyed
+    (fold_seed(id, colour), sweep within the chunk).
+    """
+    from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
+        bond_kernel_weights,
+        bond_key,
+        bond_sweeps,
+    )
+
+    device = lattice0.device
+    Jh = torch.as_tensor(Jh, dtype=torch.float32, device=device)
+    Jv = torch.as_tensor(Jv, dtype=torch.float32, device=device)
+    if schedule is None:
+        schedule = np.geomspace(T_initial, T_final, n_steps)
+    schedule = np.asarray(schedule, np.float32)
+    n_steps = len(schedule)
+    discrete = discrete_table_applicable(Jh, Jv, field)
+    weights = color_bond_weights(Jh, Jv, field, periodic)
+    kernel_weights = bond_kernel_weights(weights, discrete)
+    tables = sigmoid_table(1.0, 0.0, torch.from_numpy(schedule)).to(device) if discrete else None
+    red, black = split_checkerboard(lattice0.to(torch.bfloat16 if discrete else torch.float32))
+    best_r, best_b = red, black
+    best_e = lattice_energy_bonds_planes(red, black, weights, periodic=periodic)
+    for i, g in enumerate(range(0, n_steps, track_every)):
+        n = min(track_every, n_steps - g)
+        chunk_seed = to_int32(seed + i * SEED_STRIDE)
+        keys = [[bond_key(chunk_seed, c, k) for c in (0, 1)] for k in range(n)]
+        red, black = bond_sweeps(red, black, kernel_weights, keys,
+                                 temperatures=schedule[g:g + n],
+                                 tables=None if tables is None else tables[g:g + n],
+                                 periodic=periodic)
+        e = lattice_energy_bonds_planes(red, black, weights, periodic=periodic)
+        better = e < best_e
+        best_r = torch.where(better, red, best_r)
+        best_b = torch.where(better, black, best_b)
+        best_e = torch.minimum(e, best_e)
+    lattice = merge_checkerboard(best_r, best_b).float()
+    return lattice, lattice_energy_bonds(lattice, Jh, Jv, field, periodic=periodic)
+
+
+def dense_from_bonds(Jh, Jv, periodic: bool = True) -> np.ndarray:
+    """Dense (N, N) float64 coupling matrix of the bond planes, N = R * C,
+    site (r, c) at index r * C + c: the oracle's input for exact
+    enumeration. Open boundaries drop the bonds that cross an edge. The
+    bonds may be numpy arrays or tensors on any device; each bond is added
+    in the reference's order, so the matrix equals its bit for bit."""
+    Jh, Jv = (b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+              for b in (Jh, Jv))
+    R, C = Jh.shape
+    site = np.arange(R * C)
+    r, c = np.divmod(site, C)
+    right = r * C + (c + 1) % C
+    down = ((r + 1) % R) * C + c
+    keep_h = (c + 1 < C) | periodic
+    keep_v = (r + 1 < R) | periodic
+    # Per site, in order: its right bond both ways, then its down bond both ways.
+    rows = np.stack([site, right, site, down], axis=1)
+    cols = np.stack([right, site, down, site], axis=1)
+    vals = np.stack([Jh.ravel(), Jh.ravel(), Jv.ravel(), Jv.ravel()], axis=1)
+    keep = np.stack([keep_h, keep_h, keep_v, keep_v], axis=1)
+    J = np.zeros((R * C, R * C), dtype=np.float64)
+    np.add.at(J, (rows[keep], cols[keep]), vals[keep].astype(np.float64))
+    return J

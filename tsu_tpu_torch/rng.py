@@ -22,6 +22,10 @@ import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+# Per-call seed stride of the sweep loops: call i of a loop (burn-in is call
+# 0, sample block i is call 1 + i) draws from the stream id base + i *
+# SEED_STRIDE, and each call restarts its in-call sweep counter.
+SEED_STRIDE = 1_000_033
 
 _PHILOX_M0 = 0xD2511F53
 _PHILOX_M1 = 0xCD9E8D57

@@ -31,7 +31,11 @@ from tsu_tpu_torch.ops.checkerboard import (
     plane_energy_batch,
     split_checkerboard,
 )
-from tsu_tpu_torch.ops.checkerboard_bonds import color_bond_weights, lattice_energy_bonds_planes
+from tsu_tpu_torch.ops.checkerboard_bonds import (
+    color_bond_weights,
+    discrete_table_applicable,
+    lattice_energy_bonds_planes,
+)
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
     bond_kernel_weights,
     bond_modes,
@@ -40,7 +44,6 @@ from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
 )
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweeps_keyed, sigmoid_table16
 from tsu_tpu_torch.rng import as_generator, sweep_keys
-from tsu_tpu_torch.samplers.annealing import discrete_table_applicable
 from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper
 
 

@@ -405,20 +405,26 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     stream ids, swap uniforms and Houdayer uniforms from Philox under
     fold_seed(base, t) alone, as the reference keys it by fold_in(key, t);
     the quench draws under fold_seed(base, n_iters) with its own key. So
-    the first t iterations are the same for any ``n_iters`` > t, and
-    ``chunk_iters`` has no effect here (the reference's launch granularity;
-    its stream, like this one, does not depend on it).
+    the first t iterations are the same for any ``n_iters`` > t.
 
     ``checkpoint_path`` snapshots the search (the replica planes, the best
     planes and energies, the swap counts, the iterations done, the stream
-    base and the stream scheme) every ``checkpoint_every`` iterations and
-    after the last; ``resume=True`` continues from that snapshot, when it
-    exists, so a resumed call with the same seed returns exactly what the
+    base and the stream scheme) every ``checkpoint_every`` chunks of
+    ``chunk_iters`` iterations, counted from where this call starts, and
+    after the last; ``checkpoint_every <= 0`` never snapshots. The default
+    chunk is max(1, min(n_iters, 500 with a checkpoint path, else 3000)), as
+    in the reference. Chunks set only when snapshots are written: the draws
+    are keyed by iteration, so the results and the snapshots' contents do
+    not depend on them. ``resume=True`` continues from that snapshot, when
+    it exists, so a resumed call with the same seed returns exactly what the
     uninterrupted one would, also with a larger ``n_iters`` than the killed
     call's. A snapshot of another stream scheme raises
-    ``ConfigurationError``. Returns the reference's dict.
+    ``ConfigurationError``. Returns the reference's dict; ``iters_run`` is
+    the iterations the returned state holds, max(iterations resumed at,
+    ``n_iters``).
     """
-    del chunk_iters
+    if chunk_iters is None:
+        chunk_iters = max(1, min(n_iters, 500 if checkpoint_path else 3000))
     gen = as_generator(seed)
     temps_np = np.sort(np.asarray(temperatures, np.float32).reshape(-1))
     R, C = len(temps_np), int(n_copies)
@@ -455,8 +461,9 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
         reds, blacks, best_r, best_b = st["reds"], st["blacks"], st["best_r"], st["best_b"]
         best_e, acc_p, att_p, done = st["best_e"], st["acc_p"], st["att_p"], st["done"]
         base = st["base"]
-    for t in range(done, n_iters):
-        j = (t - done) % DRAW_ITERS
+    start = done
+    for t in range(start, n_iters):
+        j = (t - start) % DRAW_ITERS
         if j == 0:
             seeds, swap_u, hd_u = _iteration_draws(base, t, min(t + DRAW_ITERS, n_iters),
                                                    B, C, R, n_hd, dev)
@@ -487,11 +494,14 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
             best_b = best_b.index_put((touched,),
                                       torch.where(better, blacks[touched], best_b[touched]))
             best_e = best_e.index_put((touched,), torch.minimum(e, best_e[touched]))
+        done = t + 1
+        chunks_done, in_chunk = divmod(done - start, chunk_iters)
         if (checkpoint_path is not None and checkpoint_every > 0
-                and ((t + 1) % checkpoint_every == 0 or t + 1 == n_iters)):
+                and ((in_chunk == 0 and chunks_done % checkpoint_every == 0)
+                     or done == n_iters)):
             save_state(checkpoint_path, {
                 "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
-                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": t + 1,
+                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": done,
                 "base": base, "stream": SEARCH_STREAM})
 
     if quench_sweeps > 0:
@@ -525,6 +535,6 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
         "n_copies": C,
         "houdayer_every": houdayer_every if use_houdayer else 0,
         "temperatures": temps_np,
-        "iters_run": int(n_iters),
+        "iters_run": int(done),
         "discrete_table_path": ops.discrete,
     }
