@@ -1,0 +1,7 @@
+"""launch_calls_per_sweep.host_bound: launch_calls_per_sweep in the host-bound cells, read as there; it
+moves site_updates_per_s.host_bound, the rate of the cells whose calls
+the host's launch path bounds."""
+
+from perfbench.run import HERE, load_module
+
+read = load_module(HERE / "metrics" / "launch_calls_per_sweep.py").read
