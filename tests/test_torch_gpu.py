@@ -1231,3 +1231,46 @@ def test_bnn_classes_on_the_card(cuda):
     hb = b.fit(x, y, n_epochs=3, batch_size=16,
                mesh=make_mesh(chains=2, devices=[cuda] * 2))["loss_history"]
     np.testing.assert_allclose(hb, ha, rtol=1e-5)
+
+
+def _syncs_of(call):
+    """(the program's ``host_syncs`` count, the synchronizing-operation
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")``) of one call of
+    ``call``, made after a warm-up call, with tracing on."""
+    import warnings
+
+    from tsu_tpu_torch import profiling
+
+    call()
+    torch.cuda.synchronize()
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    return profiling.counters().get("host_syncs", 0), len(warned)
+
+
+@pytest.mark.parametrize("entry", ["sample_observables", "pt_ground_state_search"])
+def test_host_syncs_equal_the_sync_warnings(cuda, entry):
+    """``host_syncs`` counts every point where a call of the benchmarked
+    entries waits for the card, no more and no fewer."""
+    if entry == "sample_observables":
+        def call():
+            IsingGrid((64, 64), periodic=True, seed=3, device=cuda).sample_observables(
+                n_samples=5, temperature=2.269)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        Jh, Jv = (2.0 * torch.randint(0, 2, (2, 32, 32), generator=gen, device=cuda) - 1.0)
+
+        def call():
+            pt_ground_state_search(7, Jh, Jv, temperatures=np.geomspace(0.4, 2.0, 4),
+                                   n_iters=20, n_copies=2, houdayer_every=2, quench_sweeps=4,
+                                   device=cuda)
+    counted, warned = _syncs_of(call)
+    assert counted == warned > 0

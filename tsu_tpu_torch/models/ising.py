@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tsu_tpu_torch import profiling
 from tsu_tpu_torch.config import ConfigurationError, IsingConfig, SamplingError, resolve_device
 from tsu_tpu_torch.energy import ising_to_boltzmann
 from tsu_tpu_torch.models.lattice_sampler import (
@@ -29,7 +30,7 @@ from tsu_tpu_torch.models.lattice_sampler import (
     sample_grid,
     sample_grid_ensemble,
 )
-from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch
+from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch, merge_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds, sample_lattice_bonds
 from tsu_tpu_torch.parallel.lattice import sharded_lattice_sample
 from tsu_tpu_torch.rng import as_generator
@@ -355,10 +356,12 @@ class IsingGrid(IsingModel):
         return e.cpu().numpy()
 
     def _initial_lattice(self, initial_state) -> torch.Tensor:
-        if initial_state is not None:
-            return self._lattice(initial_state)[0]
-        up = torch.rand(self.shape, generator=self._gen) < 0.5
-        return torch.where(up, 1.0, -1.0).to(self.device)
+        with profiling.annotate("ising.initial_draw"):
+            if initial_state is not None:
+                return self._lattice(initial_state)[0]
+            up = torch.rand(self.shape, generator=self._gen) < 0.5
+            profiling.count("host_syncs")   # a copy in from pageable memory
+            return torch.where(up, 1.0, -1.0).to(self.device)
 
     def _chain_args(self, n_samples: int, temperature: Optional[float]) -> dict:
         return dict(
@@ -399,6 +402,10 @@ class IsingGrid(IsingModel):
         is larger than 1 (:func:`~tsu_tpu_torch.parallel.sharded_lattice_sample`);
         the shards live on the mesh's devices. A grid with bonds, or on the
         dense engine, ignores ``mesh``."""
+        with profiling.annotate("ising.sample_observables"):
+            return self._sample_observables(n_samples, temperature, mesh)
+
+    def _sample_observables(self, n_samples, temperature, mesh) -> dict:
         if not self._fast:
             samples = self.sample(n_samples, temperature=temperature)
             return {"magnetization": samples.mean(axis=1), "energy": self.energies(samples)}
@@ -414,14 +421,19 @@ class IsingGrid(IsingModel):
                 **self._chain_args(n_samples, temperature))
             return {"magnetization": out["magnetization"].numpy(),
                     "energy": out["energy"].numpy()}
+        lattice0 = self._initial_lattice(None)
         ms, es = [], []
-        for lattice in sample_chain(self._gen, self._initial_lattice(None),
-                                    **self._chain_args(n_samples, temperature)):
-            ms.append(lattice.to(torch.float64).sum() / self.n_spins)
-            es.append(lattice_energy_batch(lattice, J=self.coupling_strength,
-                                           field=0.0, periodic=self.periodic))
-        return {"magnetization": torch.stack(ms).cpu().numpy(),
-                "energy": torch.stack(es).cpu().numpy()}
+        for red, black in sample_chain(self._gen, lattice0,
+                                       **self._chain_args(n_samples, temperature)):
+            with profiling.annotate("ising.observables", lattice0.device):
+                lattice = merge_checkerboard(red, black).to(lattice0.dtype)
+                ms.append(lattice.to(torch.float64).sum() / self.n_spins)
+                es.append(lattice_energy_batch(lattice, J=self.coupling_strength,
+                                               field=0.0, periodic=self.periodic))
+        with profiling.annotate("ising.readout"):
+            profiling.count("host_syncs", 2)   # the two series read back
+            return {"magnetization": torch.stack(ms).cpu().numpy(),
+                    "energy": torch.stack(es).cpu().numpy()}
 
     def find_ground_state(self, n_steps: int = 1000) -> Tuple[np.ndarray, float]:
         """Anneal from T = 5.0 to 0.05 over n_steps sweeps; returns the best

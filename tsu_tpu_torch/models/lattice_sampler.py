@@ -14,7 +14,7 @@ package has it too.
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +35,10 @@ from tsu_tpu_torch.rng import SEED_STRIDE, sweep_keys, to_int32
 def sample_chain(generator: torch.Generator, lattice0: torch.Tensor, *,
                  n_samples: int, temperature, J: float = 1.0,
                  field: float = 0.0, n_burnin: int = 100, n_sweeps: int = 1,
-                 periodic: bool = False) -> Iterator[torch.Tensor]:
-    """Yield the (R, C) lattice, in lattice0's dtype, after each of n_samples
-    blocks of n_sweeps sweeps that follow n_burnin sweeps of burn-in.
-
-    The planes are kept in bfloat16 between sweeps (spins are exact in it).
-    """
+                 periodic: bool = False) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Yield the bfloat16 (red, black) planes of the (R, C) lattice after
+    each of n_samples blocks of n_sweeps sweeps that follow n_burnin sweeps
+    of burn-in (spins are exact in bfloat16)."""
     base = int(torch.randint(0, 2**30, (), generator=generator))
     red, black = split_checkerboard(lattice0.to(torch.bfloat16))
 
@@ -51,7 +49,7 @@ def sample_chain(generator: torch.Generator, lattice0: torch.Tensor, *,
     red, black = sweeps(0, red, black, n_burnin)
     for i in range(n_samples):
         red, black = sweeps(1 + i, red, black, n_sweeps)
-        yield merge_checkerboard(red, black).to(lattice0.dtype)
+        yield red, black
 
 
 def sample_grid(generator: torch.Generator, lattice0: torch.Tensor, *,
@@ -65,8 +63,8 @@ def sample_grid(generator: torch.Generator, lattice0: torch.Tensor, *,
                          n_burnin=n_burnin, n_sweeps=n_sweeps, periodic=periodic)
     R, C = lattice0.shape
     out = torch.empty((n_samples, R, C), dtype=lattice0.dtype, device=lattice0.device)
-    for i, lattice in enumerate(chain):
-        out[i] = lattice
+    for i, (red, black) in enumerate(chain):
+        out[i] = merge_checkerboard(red, black)
     return out
 
 

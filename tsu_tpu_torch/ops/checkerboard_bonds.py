@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tsu_tpu_torch import profiling
 from tsu_tpu_torch.ops.checkerboard import merge_checkerboard, split_checkerboard, wrap_halos
 from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
 from tsu_tpu_torch.rng import SEED_STRIDE, to_int32
@@ -47,6 +48,8 @@ def color_bond_weights(Jh, Jv, field=0.0, periodic: bool = True) -> dict:
     Jh = torch.as_tensor(Jh, dtype=torch.float32)
     Jv = torch.as_tensor(Jv, dtype=torch.float32, device=Jh.device)
     R, C = Jh.shape
+    # A field from the host is copied in.
+    profiling.count("host_syncs", not isinstance(field, torch.Tensor) or field.device.type == "cpu")
     field = torch.as_tensor(field, dtype=torch.float32, device=Jh.device).broadcast_to((R, C))
     out = {}
     for name, color in (("red", 0), ("black", 1)):
@@ -72,7 +75,9 @@ def pack_bond_codes(weights: dict) -> dict:
     out = {}
     for color, (wu, wd, wl, wr, f) in weights.items():
         w = torch.stack([wu, wd, wl, wr]).float()
-        if not (bool(((w == -1) | (w == 0) | (w == 1)).all()) and not bool(f.any())):
+        in_range = bool(((w == -1) | (w == 0) | (w == 1)).all())
+        profiling.count("host_syncs", 1 + in_range)   # the two reads of the checks
+        if not (in_range and not bool(f.any())):
             raise ValueError("bond codes need every weight in {-1, 0, +1} and a zero field")
         code = (w[0] + 1) + (w[1] + 1) * 4 + (w[2] + 1) * 16 + (w[3] + 1) * 64
         out[color] = code.to(torch.uint8)
@@ -204,6 +209,7 @@ def sample_lattice_bonds(generator: torch.Generator, lattice0: torch.Tensor, Jh,
 
 
 def _in_pm1_or_zero(J: torch.Tensor) -> bool:
+    profiling.count("host_syncs")
     return bool(((J == -1) | (J == 0) | (J == 1)).all())
 
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tsu_tpu_torch import profiling
 from tsu_tpu_torch.ops._build import bond_sweep_library
 from tsu_tpu_torch.ops.checkerboard import wrap_halos
 from tsu_tpu_torch.ops.checkerboard_bonds import _neighbor_values, local_field, pack_bond_codes
@@ -344,14 +345,16 @@ def bond_sweeps_keyed(reds, blacks, weights: dict, keys, *, temperatures=None, t
     name, mode = (("temperatures", temperatures) if temperatures is not None
                   else ("tables", tables))
     per_sweep = mode.dim() == (2 if temperatures is not None else 3)
-    for k in range(keys.shape[0]):
-        kw = {name: mode[k] if per_sweep else mode}
-        u = (None, None) if uniforms is None else (uniforms[k, :, 0].contiguous(),
-                                                   uniforms[k, :, 1].contiguous())
-        reds = bond_halfsweep_batched(blacks, weights["red"], keys[k, 0], update_red=True,
-                                      periodic=periodic, uniforms=u[0], **kw)
-        blacks = bond_halfsweep_batched(reds, weights["black"], keys[k, 1], update_red=False,
-                                        periodic=periodic, uniforms=u[1], **kw)
+    with profiling.annotate("bonds.sweeps", blacks.device):
+        for k in range(keys.shape[0]):
+            kw = {name: mode[k] if per_sweep else mode}
+            u = (None, None) if uniforms is None else (uniforms[k, :, 0].contiguous(),
+                                                       uniforms[k, :, 1].contiguous())
+            reds = bond_halfsweep_batched(blacks, weights["red"], keys[k, 0], update_red=True,
+                                          periodic=periodic, uniforms=u[0], **kw)
+            blacks = bond_halfsweep_batched(reds, weights["black"], keys[k, 1],
+                                            update_red=False, periodic=periodic,
+                                            uniforms=u[1], **kw)
     return reds, blacks
 
 
@@ -360,6 +363,7 @@ def bond_modes(temperatures, discrete: bool, device):
     for temperatures of any shape, on ``device``: the mode arguments of
     :func:`bond_sweeps_keyed`."""
     temps = torch.tensor(np.asarray(temperatures, np.float32))
+    profiling.count("host_syncs")   # a copy in from pageable memory
     if discrete:
         return {"tables": sigmoid_table(1.0, 0.0, temps).to(device)}
     return {"temperatures": temps.to(device)}

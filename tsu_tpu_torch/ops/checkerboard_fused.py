@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tsu_tpu_torch import profiling
 from tsu_tpu_torch.ops._build import fused_sweep_library
 from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half, neighbor_sum_half_halo
 from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words, sweep_keys
@@ -256,33 +257,36 @@ def fused_sweeps(seed: int, red: torch.Tensor, black: torch.Tensor,
     and uniform rows are set up once, so a sweep costs one kernel call and
     its two output planes; ``fused_sweep.launches`` grows by one per sweep.
     """
-    temps = torch.as_tensor(temperature, dtype=torch.float32).cpu().reshape(-1)
-    tables = sigmoid_table16(J, field, temps.broadcast_to((n_sweeps,)))
-    tables = tables.to(black.device).contiguous()
-    if uniforms is not None:
-        uniforms = torch.as_tensor(uniforms, dtype=torch.int32, device=black.device).contiguous()
-        if uniforms.shape != (n_sweeps, 2, *black.shape):
-            raise ValueError(f"uniforms must be (n_sweeps, 2, R, C2), got "
-                             f"{tuple(uniforms.shape)}")
-    if black.device.type != "cuda" or n_sweeps == 0:
-        for k in range(n_sweeps):
-            red, black = fused_sweep(
-                black, tables[k], seed=seed, sweep=k, periodic=periodic,
-                uniforms=None if uniforms is None else uniforms[k])
+    with profiling.annotate("lattice.sweeps", black.device):
+        temps = torch.as_tensor(temperature, dtype=torch.float32).cpu().reshape(-1)
+        tables = sigmoid_table16(J, field, temps.broadcast_to((n_sweeps,)))
+        profiling.count("host_syncs", n_sweeps > 0)   # the table's copy in, from pageable memory
+        tables = tables.to(black.device).contiguous()
+        if uniforms is not None:
+            uniforms = torch.as_tensor(uniforms, dtype=torch.int32,
+                                       device=black.device).contiguous()
+            if uniforms.shape != (n_sweeps, 2, *black.shape):
+                raise ValueError(f"uniforms must be (n_sweeps, 2, R, C2), got "
+                                 f"{tuple(uniforms.shape)}")
+        if black.device.type != "cuda" or n_sweeps == 0:
+            for k in range(n_sweeps):
+                red, black = fused_sweep(
+                    black, tables[k], seed=seed, sweep=k, periodic=periodic,
+                    uniforms=None if uniforms is None else uniforms[k])
+            return red, black
+        _check(black, tables[0], None if uniforms is None else uniforms[0])
+        _check_on(black.device, black=black)
+        launch = fused_sweep_library().tsu_fused_sweep
+        k0 = fold_seed(seed) & MASK32
+        stream = torch.cuda.current_stream(black.device).cuda_stream
+        table_step = tables.stride(0) * tables.element_size()
+        u_step = 0 if uniforms is None else uniforms.stride(0) * uniforms.element_size()
+        with torch.cuda.device(black.device):
+            for k in range(n_sweeps):
+                red, black = _launch(launch, black, tables.data_ptr() + k * table_step,
+                                     None if uniforms is None else uniforms.data_ptr() + k * u_step,
+                                     periodic, k0, k & MASK32, stream)
         return red, black
-    _check(black, tables[0], None if uniforms is None else uniforms[0])
-    _check_on(black.device, black=black)
-    launch = fused_sweep_library().tsu_fused_sweep
-    k0 = fold_seed(seed) & MASK32
-    stream = torch.cuda.current_stream(black.device).cuda_stream
-    table_step = tables.stride(0) * tables.element_size()
-    u_step = 0 if uniforms is None else uniforms.stride(0) * uniforms.element_size()
-    with torch.cuda.device(black.device):
-        for k in range(n_sweeps):
-            red, black = _launch(launch, black, tables.data_ptr() + k * table_step,
-                                 None if uniforms is None else uniforms.data_ptr() + k * u_step,
-                                 periodic, k0, k & MASK32, stream)
-    return red, black
 
 
 def fused_sweep_batched_reference(blacks: torch.Tensor, tables: torch.Tensor,

@@ -21,6 +21,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from tsu_tpu_torch import profiling
+
 MASK32 = 0xFFFFFFFF
 # Per-call seed stride of the sweep loops: call i of a loop (burn-in is call
 # 0, sample block i is call 1 + i) draws from the stream id base + i *
@@ -87,6 +89,9 @@ def fold_seed_tensor(*components) -> torch.Tensor:
     """:func:`fold_seed` element by element on the device: components are
     ints or broadcast-compatible int64 tensors; returns the int32 stream
     ids as an int64 tensor."""
+    # The host's start value is copied to the first tensor component's
+    # device, from pageable memory.
+    profiling.count("host_syncs", any(isinstance(v, torch.Tensor) for v in components))
     h = torch.tensor(0x9E3779B9, dtype=torch.int64)
     for v in components:
         v = torch.as_tensor(v, dtype=torch.int64)

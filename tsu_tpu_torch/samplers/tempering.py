@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tsu_tpu_torch import profiling
 from tsu_tpu_torch.config import resolve_device
 from tsu_tpu_torch.ops.checkerboard import (
     merge_checkerboard,
@@ -225,6 +226,9 @@ class _BondPlaneOps:
 
     def __init__(self, Jh, Jv, *, field=0.0, periodic: bool = True, device=None):
         self.device = resolve_device(device)
+        # Bonds in host memory are copied in, from pageable memory.
+        profiling.count("host_syncs", sum(not isinstance(J, torch.Tensor) or J.device.type == "cpu"
+                                          for J in (Jh, Jv)))
         self.Jh = torch.as_tensor(Jh, dtype=torch.float32).to(self.device)
         self.Jv = torch.as_tensor(Jv, dtype=torch.float32).to(self.device)
         self.field, self.periodic = field, periodic
@@ -235,6 +239,7 @@ class _BondPlaneOps:
 
     def init_planes(self, generator: torch.Generator, batch: int):
         up = torch.rand((batch, *self.Jh.shape), generator=generator) < 0.5
+        profiling.count("host_syncs")   # a copy in from pageable memory
         return split_checkerboard(torch.where(up, 1.0, -1.0).to(self.device, self.dtype))
 
     def modes(self, temperatures) -> dict:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from scipy.special import erfcinv, log_ndtr, ndtr
 
+from tsu_tpu_torch import profiling
 from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.ops.checkerboard import wrap_halos
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_sweep_keys
@@ -305,6 +306,7 @@ def _houdayer(u, r1, b1, r2, b2, periodic: bool):
     i chosen by the uniform u[i]: the k-th q = -1 site (red plane first,
     row-major) with k = floor(u[i] * count). The cluster grows until a step
     changes nothing, tested every GROWTH_CHECK steps."""
+    profiling.count("houdayer.moves")
     qr = (r1.float() * r2.float()) < 0
     qb = (b1.float() * b2.float()) < 0
     B = qr.shape[0]
@@ -315,12 +317,17 @@ def _houdayer(u, r1, b1, r2, b2, periodic: bool):
     nred = qr[0].numel()
     m_red, m_black = seed[:, :nred].view_as(qr), seed[:, nred:].view_as(qb)
     while True:
-        for _ in range(GROWTH_CHECK):
-            prev_red, prev_black = m_red, m_black
-            m_red = m_red | (qr & _neighbor_or(m_black, True, periodic))
-            m_black = m_black | (qb & _neighbor_or(m_red, False, periodic))
-        if torch.equal(m_red, prev_red) and torch.equal(m_black, prev_black):
-            break
+        with profiling.annotate("houdayer.grow_block"):
+            profiling.count("houdayer.growth_steps", GROWTH_CHECK)
+            for _ in range(GROWTH_CHECK):
+                prev_red, prev_black = m_red, m_black
+                m_red = m_red | (qr & _neighbor_or(m_black, True, periodic))
+                m_black = m_black | (qb & _neighbor_or(m_red, False, periodic))
+            # Each torch.equal reads its answer back from the device.
+            red_still = torch.equal(m_red, prev_red)
+            profiling.count("host_syncs", 1 + red_still)
+            if red_still and torch.equal(m_black, prev_black):
+                break
     return (torch.where(m_red, -r1, r1), torch.where(m_black, -b1, b1),
             torch.where(m_red, -r2, r2), torch.where(m_black, -b2, b2))
 
@@ -423,109 +430,129 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
     the iterations the returned state holds, max(iterations resumed at,
     ``n_iters``).
     """
-    if chunk_iters is None:
-        chunk_iters = max(1, min(n_iters, 500 if checkpoint_path else 3000))
-    gen = as_generator(seed)
-    temps_np = np.sort(np.asarray(temperatures, np.float32).reshape(-1))
-    R, C = len(temps_np), int(n_copies)
-    B = C * R
-    ops = _BondPlaneOps(Jh, Jv, field=field, periodic=periodic, device=device)
-    dev = ops.device
-    rows, cols = ops.Jh.shape
-    modes = ops.modes(np.tile(temps_np, C))
-    betas = (1.0 / torch.from_numpy(temps_np)).to(dev)
+    with profiling.annotate("pt.search"):
+        if chunk_iters is None:
+            chunk_iters = max(1, min(n_iters, 500 if checkpoint_path else 3000))
+        gen = as_generator(seed)
+        temps_np = np.sort(np.asarray(temperatures, np.float32).reshape(-1))
+        R, C = len(temps_np), int(n_copies)
+        B = C * R
+        ops = _BondPlaneOps(Jh, Jv, field=field, periodic=periodic, device=device)
+        dev = ops.device
+        rows, cols = ops.Jh.shape
+        modes = ops.modes(np.tile(temps_np, C))
+        profiling.count("host_syncs")   # the betas' copy in
+        betas = (1.0 / torch.from_numpy(temps_np)).to(dev)
 
-    n_pairs = C // 2
-    hd_rungs = max(1, int(round(R * houdayer_frac)))
-    use_houdayer = houdayer_every > 0 and n_pairs > 0
-    n_hd = n_pairs * hd_rungs if use_houdayer else 0
+        n_pairs = C // 2
+        hd_rungs = max(1, int(round(R * houdayer_frac)))
+        use_houdayer = houdayer_every > 0 and n_pairs > 0
+        n_hd = n_pairs * hd_rungs if use_houdayer else 0
 
-    reds, blacks = ops.init_planes(gen, B)
-    base = int(torch.randint(0, 2**31, (), generator=gen))
-    # Slots of rung j of copies 2k (idx1) and 2k+1 (idx2), j < hd_rungs.
-    idx1 = (2 * R * torch.arange(n_pairs)[:, None] + torch.arange(hd_rungs)).reshape(-1).to(dev)
-    idx2 = idx1 + R
-    touched = torch.cat([idx1, idx2])
-    offsets = (R * torch.arange(C, device=dev))[:, None]
+        reds, blacks = ops.init_planes(gen, B)
+        base = int(torch.randint(0, 2**31, (), generator=gen))
+        # Slots of rung j of copies 2k (idx1) and 2k+1 (idx2), j < hd_rungs.
+        profiling.count("host_syncs")   # idx1's copy in
+        idx1 = (2 * R * torch.arange(n_pairs)[:, None]
+                + torch.arange(hd_rungs)).reshape(-1).to(dev)
+        idx2 = idx1 + R
+        touched = torch.cat([idx1, idx2])
+        offsets = (R * torch.arange(C, device=dev))[:, None]
 
-    best_r, best_b = reds, blacks
-    best_e = ops.energy_planes(reds, blacks)
-    acc_p = torch.zeros(max(R - 1, 0), dtype=torch.int32, device=dev)
-    att_p = torch.zeros_like(acc_p)
-    done = 0
-    if resume and checkpoint_path is not None and checkpoint_exists(checkpoint_path):
-        _check_stream(checkpoint_path)
-        st = restore_state(checkpoint_path, {
-            "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
-            "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": 0, "base": 0})
-        reds, blacks, best_r, best_b = st["reds"], st["blacks"], st["best_r"], st["best_b"]
-        best_e, acc_p, att_p, done = st["best_e"], st["acc_p"], st["att_p"], st["done"]
-        base = st["base"]
-    start = done
-    for t in range(start, n_iters):
-        j = (t - start) % DRAW_ITERS
-        if j == 0:
-            seeds, swap_u, hd_u = _iteration_draws(base, t, min(t + DRAW_ITERS, n_iters),
-                                                   B, C, R, n_hd, dev)
-            keys = _bond_keys(seeds, n_sweeps)
-        reds, blacks = ops.sweep_keyed(reds, blacks, keys[j], modes)
-        e = ops.energy_planes(reds, blacks)
-        better = (e < best_e)[:, None, None]
-        best_r = torch.where(better, reds, best_r)
-        best_b = torch.where(better, blacks, best_b)
-        best_e = torch.minimum(e, best_e)
-        if (t + 1) % swap_interval == 0:
-            perm, acc, att = _swap_permutation(swap_u[j], e.view(C, R), betas,
-                                               (t // swap_interval) % 2)
-            perm = (perm + offsets).reshape(-1)
-            reds, blacks = reds[perm], blacks[perm]
-            acc_p += acc.sum(dim=0, dtype=torch.int32)
-            att_p += att * C
-        if use_houdayer and (t + 1) % houdayer_every == 0:
-            r1, b1, r2, b2 = _houdayer(hd_u[j], reds[idx1], blacks[idx1], reds[idx2],
-                                       blacks[idx2], periodic)
-            reds = reds.index_put((idx1,), r1).index_put((idx2,), r2)
-            blacks = blacks.index_put((idx1,), b1).index_put((idx2,), b2)
-            # A move keeps E1 + E2 but may lower one replica: record it now,
-            # before the next sweep walks away from it.
-            e = ops.energy_planes(reds[touched], blacks[touched])
-            better = (e < best_e[touched])[:, None, None]
-            best_r = best_r.index_put((touched,), torch.where(better, reds[touched], best_r[touched]))
-            best_b = best_b.index_put((touched,),
-                                      torch.where(better, blacks[touched], best_b[touched]))
-            best_e = best_e.index_put((touched,), torch.minimum(e, best_e[touched]))
-        done = t + 1
-        chunks_done, in_chunk = divmod(done - start, chunk_iters)
-        if (checkpoint_path is not None and checkpoint_every > 0
-                and ((in_chunk == 0 and chunks_done % checkpoint_every == 0)
-                     or done == n_iters)):
-            save_state(checkpoint_path, {
+        best_r, best_b = reds, blacks
+        best_e = ops.energy_planes(reds, blacks)
+        acc_p = torch.zeros(max(R - 1, 0), dtype=torch.int32, device=dev)
+        att_p = torch.zeros_like(acc_p)
+        done = 0
+        if resume and checkpoint_path is not None and checkpoint_exists(checkpoint_path):
+            _check_stream(checkpoint_path)
+            st = restore_state(checkpoint_path, {
                 "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
-                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": done,
-                "base": base, "stream": SEARCH_STREAM})
+                "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": 0, "base": 0})
+            reds, blacks, best_r, best_b = st["reds"], st["blacks"], st["best_r"], st["best_b"]
+            best_e, acc_p, att_p, done = st["best_e"], st["acc_p"], st["att_p"], st["done"]
+            base = st["base"]
+        start = done
+        for t in range(start, n_iters):
+            j = (t - start) % DRAW_ITERS
+            if j == 0:
+                with profiling.annotate("pt.draws"):
+                    seeds, swap_u, hd_u = _iteration_draws(
+                        base, t, min(t + DRAW_ITERS, n_iters), B, C, R, n_hd, dev)
+                    keys = _bond_keys(seeds, n_sweeps)
+            reds, blacks = ops.sweep_keyed(reds, blacks, keys[j], modes)
+            with profiling.annotate("pt.best"):
+                e = ops.energy_planes(reds, blacks)
+                better = (e < best_e)[:, None, None]
+                best_r = torch.where(better, reds, best_r)
+                best_b = torch.where(better, blacks, best_b)
+                best_e = torch.minimum(e, best_e)
+            if (t + 1) % swap_interval == 0:
+                with profiling.annotate("pt.swap"):
+                    perm, acc, att = _swap_permutation(swap_u[j], e.view(C, R), betas,
+                                                       (t // swap_interval) % 2)
+                    perm = (perm + offsets).reshape(-1)
+                    reds, blacks = reds[perm], blacks[perm]
+                    acc_p += acc.sum(dim=0, dtype=torch.int32)
+                    att_p += att * C
+            if use_houdayer and (t + 1) % houdayer_every == 0:
+                with profiling.annotate("pt.houdayer"):
+                    r1, b1, r2, b2 = _houdayer(hd_u[j], reds[idx1], blacks[idx1], reds[idx2],
+                                               blacks[idx2], periodic)
+                    reds = reds.index_put((idx1,), r1).index_put((idx2,), r2)
+                    blacks = blacks.index_put((idx1,), b1).index_put((idx2,), b2)
+                    # A move keeps E1 + E2 but may lower one replica: record it
+                    # now, before the next sweep walks away from it.
+                    e = ops.energy_planes(reds[touched], blacks[touched])
+                    better = (e < best_e[touched])[:, None, None]
+                    best_r = best_r.index_put(
+                        (touched,), torch.where(better, reds[touched], best_r[touched]))
+                    best_b = best_b.index_put(
+                        (touched,), torch.where(better, blacks[touched], best_b[touched]))
+                    best_e = best_e.index_put((touched,), torch.minimum(e, best_e[touched]))
+            done = t + 1
+            chunks_done, in_chunk = divmod(done - start, chunk_iters)
+            if (checkpoint_path is not None and checkpoint_every > 0
+                    and ((in_chunk == 0 and chunks_done % checkpoint_every == 0)
+                         or done == n_iters)):
+                with profiling.annotate("pt.snapshot"):
+                    state = {
+                        "reds": reds, "blacks": blacks, "best_r": best_r, "best_b": best_b,
+                        "best_e": best_e, "acc_p": acc_p, "att_p": att_p, "done": done,
+                        "base": base, "stream": SEARCH_STREAM}
+                    # save_state reads each tensor back to the host.
+                    profiling.count("host_syncs", sum(isinstance(v, torch.Tensor)
+                                                      for v in state.values()))
+                    save_state(checkpoint_path, state)
 
-    if quench_sweeps > 0:
-        # Every slot's best state descends to its local minimum; B restarts
-        # for the price of one batched schedule.
-        qsched = np.geomspace(float(temps_np[0]), quench_T_final, quench_sweeps).astype(np.float32)
-        qmodes = ops.modes(np.repeat(qsched[:, None], B, axis=1))
-        qseeds = philox_words(fold_seed(base, n_iters), _QUENCH, quench_sweeps, B, dev)
-        qkeys = _bond_keys(qseeds & (2**30 - 1), 1)
-        qr, qb = best_r, best_b
-        for k in range(quench_sweeps):
-            qr, qb = ops.sweep_keyed(qr, qb, qkeys[k], {n: m[k:k + 1] for n, m in qmodes.items()})
-            e = ops.energy_planes(qr, qb)
-            better = (e < best_e)[:, None, None]
-            best_r = torch.where(better, qr, best_r)
-            best_b = torch.where(better, qb, best_b)
-            best_e = torch.minimum(e, best_e)
+        if quench_sweeps > 0:
+            # Every slot's best state descends to its local minimum; B restarts
+            # for the price of one batched schedule.
+            with profiling.annotate("pt.quench"):
+                qsched = np.geomspace(float(temps_np[0]), quench_T_final,
+                                      quench_sweeps).astype(np.float32)
+                qmodes = ops.modes(np.repeat(qsched[:, None], B, axis=1))
+                qseeds = philox_words(fold_seed(base, n_iters), _QUENCH, quench_sweeps, B, dev)
+                qkeys = _bond_keys(qseeds & (2**30 - 1), 1)
+                qr, qb = best_r, best_b
+                for k in range(quench_sweeps):
+                    qr, qb = ops.sweep_keyed(qr, qb, qkeys[k],
+                                             {n: m[k:k + 1] for n, m in qmodes.items()})
+                    e = ops.energy_planes(qr, qb)
+                    better = (e < best_e)[:, None, None]
+                    best_r = torch.where(better, qr, best_r)
+                    best_b = torch.where(better, qb, best_b)
+                    best_e = torch.minimum(e, best_e)
 
-    best_e_np = best_e.cpu().numpy()
-    acc_np, att_np = acc_p.cpu().numpy(), att_p.cpu().numpy()
-    i = int(best_e_np.argmin())
-    n_att = int(att_np.sum())
+        with profiling.annotate("pt.readout"):
+            profiling.count("host_syncs", 4)   # the four .cpu() reads below
+            best_e_np = best_e.cpu().numpy()
+            acc_np, att_np = acc_p.cpu().numpy(), att_p.cpu().numpy()
+            i = int(best_e_np.argmin())
+            n_att = int(att_np.sum())
+            best_state = ops.merge(best_r[i], best_b[i]).cpu().numpy()
     return {
-        "best_state": ops.merge(best_r[i], best_b[i]).cpu().numpy(),
+        "best_state": best_state,
         "best_energy": float(best_e_np[i]),
         "energy_per_site": float(best_e_np[i]) / (rows * cols),
         "pair_acceptance": acc_np / np.maximum(att_np, 1),

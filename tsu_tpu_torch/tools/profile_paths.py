@@ -13,9 +13,10 @@ captured by the warm-up. For each path it prints
 the wall time, the device busy time and idle share, the count and device
 time of the port's kernels, the host's launch calls (kernels, and CUDA
 graphs, one call each) and their host time,
-and the operations with the most device time. Busy time sums only the
-events whose ``device_type`` is CUDA: ``key_averages()`` lists a kernel's
-time a second time under the CPU operation that launched it. Then it times
+and the operations with the most device time. Busy time is the union of
+the intervals of the device's events (kernels, copies and sets, not
+annotations) on the profiler's timeline, so work that overlaps counts
+once. Then it times
 the host path of one launch on the host clock, at a 2x2 lattice whose kernel
 the card finishes at once: a batched sweep (``fused_sweeps_keyed``), one
 ``fused_sweep`` wrapper call, and one sweep of ``fused_sweeps``, which sets up
@@ -228,6 +229,25 @@ def profile_path(fn, tables: list) -> dict:
     return profile_once(fn, tables)
 
 
+def busy_ms_of(events) -> float:
+    """Milliseconds of the union of the device's intervals among the
+    profiler's events (``_KinetoEvent``s): CUDA events that are not
+    annotations."""
+    from torch.autograd import DeviceType
+
+    total, reach = 0, None
+    for start, end in sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                             if e.device_type() == DeviceType.CUDA
+                             and not e.is_user_annotation()):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total / 1e6
+
+
 def profile_once(fn, tables: list) -> dict:
     """One call of ``fn`` under the profiler: wall, device busy and idle,
     the port's kernels, host launch calls and the top device operations;
@@ -243,7 +263,7 @@ def profile_once(fn, tables: list) -> dict:
     events = prof.key_averages()
     device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    busy_ms = busy_ms_of(prof.profiler.kineto_results.events())
     launch = [e for e in events if e.key in LAUNCH_CALLS]
     tables.append(events.table(sort_by="self_device_time_total", row_limit=40))
     return {
