@@ -58,8 +58,8 @@ Phases, each of which raises on failure:
     launches), IsingGrid(4096^2, +-J).find_ground_state(3000) (6,000 K4
     launches), parallel_tempering_bonds over 64 rungs of 256^2 (600 K5
     launches), build_tempering_ladder at 256^2 then pt_ground_state_search
-    with 2 copies and Houdayer moves (K5 only); and each at 16x16 equal on
-    cuda and on cpu;
+    with 2 copies and Houdayer moves (K5, and 50 K9, one a move); and each
+    at 16x16 equal on cuda and on cpu;
 14. bond kernel and plain times per half-sweep: K4 discrete at 4096^2 bf16
     and at 4096x4094, K4 continuous at 4096^2 f32, K5 discrete at
     284 x 256^2 and 64 x 256^2 bf16; the kernel's time from a CUDA graph of
@@ -263,18 +263,28 @@ Phases, each of which raises on failure:
     +-J, 32 rungs x 2 copies, 1,000 iterations, with a checkpoint path, is
     timed at the default cadence (2 snapshots) and at one snapshot an
     iteration (1,000), with the bytes of one snapshot; the two results must
-    be equal.
+    be equal;
+43. the Houdayer cluster kernel (K9, which replaces no TPU kernel) against
+    its plain version at the PT cell's shape, 16 replica pairs of 256^2
+    bf16, periodic, bit for bit in the planes and in the growth steps,
+    launched once, on its global-scratch route and from a CUDA graph; its
+    card ms a move on each route, launched one by one and from a CUDA graph
+    of 100 moves, the routes in turns three times, its bound (the four
+    planes read and the four written, over 3.35 TB/s) and the plain
+    version's ms a move.
 
-A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:" and a
-"slice 9:" JSON log line carry those phases' numbers.
+A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:", a
+"slice 9:" and a "houdayer:" JSON log line carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
 card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
-and their CUDA counterparts; K1 and K2 also carry graph_ms, their time from
+and their CUDA counterparts, and K9, which replaces none; K1, K2 and K9
+also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
-grid-stride body's time, the barrier cost and the grid; K1-K5 the launches
+grid-stride body's time, the barrier cost and the grid, K9 its times on
+the global route; K1-K5 and K9 the launches
 of each slice-7 path that ran them, K1-K3 those of each slice-8 path,
 summed over its ranks, K1, K4 and K5 those of each example of phase 42)
 and the result line {"ok": true, "device": {...}}. Without CUDA the script
@@ -380,6 +390,11 @@ from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_sweeps_table_reference,
     tile_bounds,
 )
+from tsu_tpu_torch.ops.houdayer_kernel import (
+    _DTYPES as HOUDAYER_DTYPES,
+    houdayer_cluster_kernel,
+    houdayer_cluster_reference,
+)
 from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
     decomposition_sweep,
@@ -462,8 +477,9 @@ def log(msg: str):
 
 
 KERNELS = (fused_sweep, fused_sweep_batched, bond_halfsweep, bond_halfsweep_batched,
-           resident_sweeps_table, resident_anneal_tables, decomposition_sweep, halfsweep)
-NAMES = ("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K3")
+           resident_sweeps_table, resident_anneal_tables, decomposition_sweep, halfsweep,
+           houdayer_cluster_kernel)
+NAMES = ("K1", "K2", "K4", "K5", "K6", "K7", "K8", "K3", "K9")
 
 
 def reset_counts():
@@ -472,7 +488,7 @@ def reset_counts():
 
 
 def counts():
-    """Launches of K1, K2, K4, K5, K6, K7, K8 and K3 since the last reset."""
+    """Launches of K1, K2, K4, K5, K6, K7, K8, K3 and K9 since the last reset."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -720,7 +736,7 @@ def phase_batched_statistics(dev):
 
 def run_path(what, fn, want):
     """Run one path from zeroed counts; raise unless the launches of
-    (K1, K2, K4, K5, K6, K7, K8, K3) are ``want`` (a function of the output,
+    (K1, K2, K4, K5, K6, K7, K8, K3, K9) are ``want`` (a function of the output,
     or a tuple of the leading counts, the rest zero). Returns (output,
     counts)."""
     reset_counts()
@@ -1089,14 +1105,19 @@ def phase_bond_statistics(dev):
                              "than 0.01")
 
 
+LADDER_HOUDAYER_EVERY = 10   # ladder_then_search's (and spin_glass_ea's) Houdayer cadence
+
+
 def ladder_launches(n_iters: int, quench: int):
     """K5 launches of build_tempering_ladder (pilot 128 + 128 sweeps;
     feedback rounds of 32 + 128 iterations of 2 sweeps) and of
     pt_ground_state_search (n_iters sweeps and the quench), two half-sweeps
-    a sweep."""
+    a sweep; and K9's, one a Houdayer move, every LADDER_HOUDAYER_EVERY
+    iterations of the search."""
     def count(out):
         rounds = out[1]["feedback_rounds_run"]
-        return (0, 0, 0, 2 * (256 + rounds * 160 * 2 + n_iters + quench))
+        return (0, 0, 0, 2 * (256 + rounds * 160 * 2 + n_iters + quench), 0, 0, 0, 0,
+                n_iters // LADDER_HOUDAYER_EVERY)
     return count
 
 
@@ -1105,12 +1126,13 @@ def ladder_then_search(gen, Jh, Jv, dev, n_iters=500, quench=64, feedback_iters=
         gen, Jh, Jv, T_min=0.3, T_max=2.0, target_acceptance=0.3, accept_floor=0.2,
         feedback_iters=feedback_iters, feedback_burnin=feedback_iters // 4, device=dev)
     out = pt_ground_state_search(gen, Jh, Jv, temperatures=temps, n_iters=n_iters, n_sweeps=1,
-                                 n_copies=2, houdayer_every=10, quench_sweeps=quench, device=dev)
+                                 n_copies=2, houdayer_every=LADDER_HOUDAYER_EVERY,
+                                 quench_sweeps=quench, device=dev)
     return temps, info, out
 
 
 def phase_bond_paths(dev):
-    """Phase 13; returns the K4 and K5 launches of the paths."""
+    """Phase 13; returns the K4, K5 and K9 launches of the paths."""
     gen = torch.Generator().manual_seed(41)
     n = MAIN_SHAPE[0] * MAIN_SHAPE[1]
     cfg = IsingConfig()
@@ -1185,7 +1207,7 @@ def phase_bond_paths(dev):
                                               n_iters=20, quench=4, feedback_iters=8)
         return [temps, out["best_state"], out["best_energy"], out["pair_attempts"]]
     same_on_cpu("build_tempering_ladder + pt_ground_state_search", search_small, dev)
-    return c1[2] + c2[2], c3[3] + c4[3]
+    return c1[2] + c2[2], c3[3] + c4[3], c4[8]
 
 
 def chain_ms(halfsweep, other, weights, n, timer=time_sweeps, **mode):
@@ -2625,6 +2647,9 @@ BNN_ENSEMBLE = dict(members=8, sizes=(1, 32, 32, 1), n_points=80, steps=50)
 PREDICT = dict(n_samples=200, n_points=200)           # the ML rows' predictive
 DP_POINTS = 16_384                                    # measure_bnn_dp_scaling's points per device
 LATTICE_MATCHED = dict(size=4096, n_sweeps=2500, n_iters=3)
+# spin_glass_ea's quick row: a warm-up chunk of 1,000 iterations and a search
+# of 2,000, a Houdayer move every 10.
+RUNNER_HOUDAYER_MOVES = (1000 + 2000) // LADDER_HOUDAYER_EVERY
 RUNNER_ROWS = {
     "sampling": ["uniform_binary", "boltzmann_chain", "ferromagnet_bimodal"],
     "optimization": ["maxcut", "graph_coloring", "number_partitioning", "maxcut_sparse",
@@ -2804,7 +2829,8 @@ def phase_ml_suite(dev):
 
 def check_quick_runner(runner, out, got) -> int:
     """Phase 35's checks of a quick run of the runner: every row of the four
-    suites, each row's route, and K5's launches (spin_glass_ea) alone;
+    suites, each row's route, and K5's and K9's launches (spin_glass_ea)
+    alone, K9 once a Houdayer move of its warm-up chunk and its timed search;
     returns K5's launches."""
     for suite, names in RUNNER_ROWS.items():
         if [r["name"] for r in out["suites"][suite]] != names:
@@ -2816,8 +2842,11 @@ def check_quick_runner(runner, out, got) -> int:
     k5 = got[NAMES.index("K5")]
     log(f"runner quick: {out['total_time_s']} s (total_time_s); routes {runner.routes}; launches "
         + ", ".join(f"{k} {n}" for k, n in zip(NAMES, got)))
-    if k5 <= 0 or any(n for k, n in zip(NAMES, got) if k != "K5"):
-        raise AssertionError(f"runner quick: expected K5 launches (spin_glass_ea) only, got {got}")
+    k9 = got[NAMES.index("K9")]
+    if (k5 <= 0 or k9 != RUNNER_HOUDAYER_MOVES
+            or any(n for k, n in zip(NAMES, got) if k not in ("K5", "K9"))):
+        raise AssertionError(f"runner quick: expected K5 launches and {RUNNER_HOUDAYER_MOVES} of "
+                             f"K9 (spin_glass_ea) only, got {got}")
     return k5
 
 
@@ -3167,8 +3196,8 @@ def run_slice7(dev, name):
         wolff = pool.submit(wolff_chain, critical_ess.SEED, WOLFF["L"], critical_ess.T_C,
                             WOLFF["n_steps"])
         cli_runs = phase_cli(dev, workdir)
-        log("phase 37: the CLI ran at its users' sizes through K2, K4 and K5; the quick runner "
-            "ran every row of its four suites")
+        log("phase 37: the CLI ran at its users' sizes through K2, K4, K5 and K9; the quick "
+            "runner ran every row of its four suites")
 
         ess = phase_critical_ess(dev, name, wolff)
         log("phase 38: critical_ess's rows ran K1 at the script's settings; the projection uses "
@@ -3515,6 +3544,109 @@ def phase_examples(dev, workdir):
     return launches, numbers
 
 
+HOUDAYER_PAIRS = 16        # the PT cell's pairs: the 16 coldest of 32 rungs, copies 0 and 1
+HOUDAYER_Q = 0.62          # q = -1 density of the pairs, above site percolation's 0.593
+
+
+def houdayer_pairs(gen: torch.Generator, B: int, shape, dtype, device) -> list:
+    """(r1, b1, r2, b2) of B replica pairs: replica 1 random, replica 2 it
+    with the sites of a site-percolation pattern at HOUDAYER_Q negated, so
+    the q = -1 clusters span the lattice as a cold pair's do and the growth
+    takes hundreds of steps."""
+    s1 = torch.where(torch.rand((B, *shape), generator=gen) < 0.5, 1.0, -1.0)
+    q = torch.where(torch.rand((B, *shape), generator=gen) < HOUDAYER_Q, -1.0, 1.0)
+    return [x.to(dtype).contiguous().to(device)
+            for s in (s1, s1 * q) for x in split_checkerboard(s)]
+
+
+def k9_global_route(u, r1, b1, r2, b2, periodic):
+    """One launch of K9 with its bit planes in a global scratch, the route of
+    lattices whose planes do not fit a block's shared memory, at any size;
+    returns (the moved planes, each pair's growth steps)."""
+    planes = (r1, b1, r2, b2)
+    B, R, C2 = r1.shape
+    scratch = torch.empty((B, 4, R, -(-C2 // 32)), dtype=torch.int32, device=r1.device)
+    outs = [torch.empty_like(x) for x in planes]
+    steps = torch.empty(B, dtype=torch.int32, device=r1.device)
+    err = _build.houdayer_cluster_library().tsu_houdayer_cluster(
+        *(x.data_ptr() for x in planes), *(x.data_ptr() for x in outs), u.data_ptr(),
+        int(u.dtype == torch.float64), HOUDAYER_DTYPES[r1.dtype], B, R, C2, int(periodic),
+        scratch.data_ptr(), steps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K9 on the global route failed with CUDA error {err}")
+    return tuple(outs), steps
+
+
+def phase_houdayer(dev, name) -> dict:
+    """Phase 43: K9 == its plain version at the PT cell's shape, planes and
+    growth steps, launched once, on the global route and replayed from a
+    CUDA graph; then its time a move on each route, one by one and from a
+    graph of 100 (the two routes in turns, three times), beside its bound and
+    the plain version's time."""
+    gen = torch.Generator().manual_seed(43)
+    planes = houdayer_pairs(gen, HOUDAYER_PAIRS, PT_SHAPE, torch.bfloat16, dev)
+    u = torch.rand(HOUDAYER_PAIRS, generator=gen).to(dev)
+    want, want_steps = houdayer_cluster_reference(u, *planes, True, check_every=1)
+
+    def check(what, got):
+        moved, steps = got
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(moved, want)):
+            differ = [int((a != b).sum()) for a, b in zip(moved, want)]
+            raise AssertionError(f"K9 != plain ({what}): {differ} sites differ")
+        if int(steps.max()) != want_steps:
+            raise AssertionError(f"K9 ({what}) counted {int(steps.max())} growth steps, the "
+                                 f"plain version {want_steps}")
+
+    reset_counts()
+    check("one launch", houdayer_cluster_kernel(u, *planes, True))
+    if counts() != expect(0, 0, 0, 0, 0, 0, 0, 0, 1):
+        raise AssertionError(f"a K9 move launched {counts()}")
+    check("the global route", k9_global_route(u, *planes, True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        houdayer_cluster_kernel(u, *planes, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = houdayer_cluster_kernel(u, *planes, True)
+    graph.replay()
+    check("a CUDA graph", replayed)
+
+    def moves(route):
+        def go(n):
+            for _ in range(n):
+                route(u, *planes, True)
+        return go
+
+    def plain(n):
+        for _ in range(n):
+            houdayer_cluster_reference(u, *planes, True)
+
+    routes = {"shared": houdayer_cluster_kernel, "global": k9_global_route}
+    runs = {k: {"card_ms": [], "graph_ms": []} for k in routes}
+    for _ in range(3):
+        for k, route in routes.items():
+            runs[k]["card_ms"].append(time_sweeps(moves(route), 100))
+            runs[k]["graph_ms"].append(graph_ms(moves(route), 100))
+    plain(1)
+    plain_ms = time_sweeps(plain, 3)
+    sites = HOUDAYER_PAIRS * PT_SHAPE[0] * PT_SHAPE[1]
+    med = {k: {m: float(np.median(v)) for m, v in r.items()} for k, r in runs.items()}
+    out = {"growth_steps": want_steps, "card_ms": med["shared"]["card_ms"],
+           "graph_ms": med["shared"]["graph_ms"], "global_card_ms": med["global"]["card_ms"],
+           "global_graph_ms": med["global"]["graph_ms"], "runs_ms": runs,
+           "bound_ms": bound_ms(2 * 2 * 2 * sites), "plain_ms": plain_ms,
+           "shape": [HOUDAYER_PAIRS, PT_SHAPE[0], PT_SHAPE[1] // 2], "card": name}
+    log(f"phase 43: K9 at {HOUDAYER_PAIRS} pairs x {PT_SHAPE} bf16 periodic, {want_steps} "
+        f"growth steps, ms a move (median of 3) one by one and from a CUDA graph of 100: "
+        f"shared route {out['card_ms']:.6f}, {out['graph_ms']:.6f}; global route "
+        f"{out['global_card_ms']:.6f}, {out['global_graph_ms']:.6f}; bound "
+        f"{out['bound_ms']:.6f}, plain {plain_ms:.3f} ms, on {name}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3531,9 +3663,11 @@ def main() -> int:
                                               _build.resident_sweep_library,
                                               resident_bodies.gridstride_library,
                                               _build.halfsweep_library,
-                                              halfsweep_bodies.scalar_library)))
-    log("phase 1: built the fused-sweep, the bond, the resident (and its grid-stride body) and "
-        f"the half-sweep (and its first body) kernels in {time.perf_counter() - t0:.2f} s")
+                                              halfsweep_bodies.scalar_library,
+                                              _build.houdayer_cluster_library)))
+    log("phase 1: built the fused-sweep, the bond, the resident (and its grid-stride body), "
+        "the half-sweep (and its first body) and the Houdayer cluster kernels in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
     cgen = torch.Generator(device=dev).manual_seed(0)
@@ -3581,8 +3715,8 @@ def main() -> int:
     phase_bond_statistics(dev)
     log("phase 12: spin-glass statistics agree with the exact references")
 
-    launches4, launches5 = phase_bond_paths(dev)
-    log("phase 13: the spin-glass paths ran through K4 and K5")
+    launches4, launches5, launches9 = phase_bond_paths(dev)
+    log("phase 13: the spin-glass paths ran through K4, K5 and K9")
 
     bond_times = phase_bond_timing(dev, name)
     log("phase 14: timed")
@@ -3691,6 +3825,11 @@ def main() -> int:
         "the PT search snapshotted as the reference does, and was timed at two cadences")
     log(f"phase 42 added {numbers9['seconds']:.1f} s")
     log("slice 9: " + json.dumps({**numbers9, "card": name}, default=float))
+
+    houdayer = phase_houdayer(dev, name)
+    log("phase 43: K9 == its plain version at the PT cell's shape, once, on the global route "
+        "and from a graph")
+    log("houdayer: " + json.dumps(houdayer))
 
     def slice9_launches(k):
         """The examples that launched kernel k, with their launches."""
@@ -3810,6 +3949,13 @@ def main() -> int:
                          "bound_ms": bound_ms(dec_bytes[m])} for m in MODES},
               baseline_ms=dec["ms_per_sweep"]["baseline"],
               share_of_baseline=dec["share_of_baseline"]),
+        # K9 replaces no TPU kernel; it is checked bit for bit (error 0), a
+        # move of HOUDAYER_PAIRS pairs reads four planes and writes four.
+        entry("houdayer_cluster", "tsu_tpu_torch/csrc/houdayer_cluster.cu", None, launches9, 0.0,
+              houdayer["card_ms"], houdayer["plain_ms"],
+              2 * 2 * 2 * HOUDAYER_PAIRS * PT_SHAPE[0] * PT_SHAPE[1], graph_ms=houdayer["graph_ms"],
+              global_ms=houdayer["global_card_ms"], global_graph_ms=houdayer["global_graph_ms"],
+              growth_steps=houdayer["growth_steps"], slice7_launches=slice7_launches("K9")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 """The CUDA kernels (the fused sweep of one lattice, of a batch of lattices
 and of a shard, the bond half-sweep of one lattice and of a batch of
 replicas, the resident multi-sweep kernel at one table and over a schedule,
-the fused sweep's decomposition variants, the exact-sigmoid half-sweep)
-against their plain PyTorch versions, and the batched, spin-glass and
+the fused sweep's decomposition variants, the exact-sigmoid half-sweep,
+the Houdayer cluster move) against their plain PyTorch versions, and the batched, spin-glass and
 sharded paths on the card against the same paths on the CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tsu_tpu_torch import IsingConfig, IsingGrid
+from tsu_tpu_torch import IsingConfig, IsingGrid, profiling
 from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble
 from tsu_tpu_torch.ops.checkerboard import split_checkerboard
@@ -47,6 +47,13 @@ from tsu_tpu_torch.ops.checkerboard_resident import (
     resident_grid,
     resident_sweeps_table,
     resident_sweeps_table_reference,
+)
+from tsu_tpu_torch.ops.houdayer_kernel import (
+    GROWTH_CHECK,
+    _smem_limit,
+    growth_steps,
+    houdayer_cluster_kernel,
+    houdayer_cluster_reference,
 )
 from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
@@ -365,6 +372,115 @@ def test_spin_glass_paths_on_cuda_equal_those_on_cpu(cuda):
     for path in (anneal, tempering, search):
         for a, b in zip(path(cuda), path(torch.device("cpu"))):
             assert torch.equal(a, b), path.__name__
+
+
+# Lattice shapes of the Houdayer kernel's tests: square ones, a narrow ragged
+# one (C/2 = 33: a row's last word holds one column) and one whose four bit
+# planes (16 R ceil(C/64) bytes, 256 KiB) exceed a block's shared memory.
+HOUDAYER_SHAPES = [(16, 16), (64, 64), (256, 256), (10, 66), (1024, 1024)]
+
+
+def _houdayer_pairs(seed, B, shape, dtype, device):
+    """(r1, b1, r2, b2) of B replica pairs: replica 1 random, replica 2 it
+    with a site-percolation pattern at 0.62 negated (above the threshold, so
+    a cluster spans the lattice); with B > 1, pair 0 agrees everywhere and
+    pair 1 nowhere."""
+    rng = np.random.default_rng(seed)
+    s1 = np.where(rng.random((B, *shape)) < 0.5, 1.0, -1.0)
+    q = np.where(rng.random((B, *shape)) < 0.62, -1.0, 1.0)
+    if B > 1:
+        q[0], q[1] = 1.0, -1.0
+    return [x.to(dtype).contiguous().to(device)
+            for s in (s1, s1 * q) for x in split_checkerboard(torch.from_numpy(s))]
+
+
+def _houdayer_both_ways(u, planes, periodic):
+    """K9's planes and growth steps == the plain version's, bit for bit, and
+    one launch for the move; returns each pair's steps."""
+    launches = houdayer_cluster_kernel.launches
+    got, steps = houdayer_cluster_kernel(u, *planes, periodic)
+    want, want_steps = houdayer_cluster_reference(u, *planes, periodic, check_every=1)
+    torch.cuda.synchronize()
+    assert houdayer_cluster_kernel.launches == launches + 1
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[planes[0].element_size()]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
+    assert steps.shape == u.shape and int(steps.max()) == want_steps
+    return steps
+
+
+@pytest.mark.parametrize("pairs", [1, 16])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
+@pytest.mark.parametrize("shape", HOUDAYER_SHAPES)
+def test_houdayer_kernel_matches_plain_version(cuda, shape, dtype, periodic, pairs):
+    planes = _houdayer_pairs(30, pairs, shape, dtype, cuda)
+    u = torch.from_numpy(np.random.default_rng(31).random(pairs, np.float32)).to(cuda)
+    if pairs > 2:
+        u[2] = 1.0 - 2.0**-24      # the largest uniform: the last q = -1 site
+    W = -(-shape[1] // 64)
+    assert (16 * shape[0] * W > _smem_limit(cuda.index or 0)) == (shape == (1024, 1024))
+    steps = int(_houdayer_both_ways(u, planes, periodic).max())
+    # The CPU path's count: the kernel's, rounded up to its fixed-point tests.
+    assert houdayer_cluster_reference(u, *planes, periodic)[1] \
+        == -(-steps // GROWTH_CHECK) * GROWTH_CHECK
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_houdayer_kernel_takes_float64_uniforms_and_clamps_the_seed(cuda, periodic):
+    """u * count rounded up to count in float64 (1 - 2^-53, and 1.0) picks
+    the last q = -1 site, as the plain version's clamp does; each pair's own
+    step count is the plain version's for that pair alone."""
+    planes = _houdayer_pairs(32, 4, (64, 64), torch.bfloat16, cuda)
+    u = torch.tensor([0.0, 0.5, 1.0 - 2.0**-53, 1.0], dtype=torch.float64, device=cuda)
+    steps = _houdayer_both_ways(u, planes, periodic)
+    for i in range(4):
+        one = [x[i:i + 1] for x in planes]
+        assert int(steps[i]) == houdayer_cluster_reference(u[i:i + 1], *one, periodic,
+                                                           check_every=1)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
+def test_houdayer_kernel_widens_values_as_the_plain_version(cuda, dtype):
+    """Values other than +-1: q = -1 where the float32 product is negative,
+    so a zero, or a product that underflows float32 (or a float64 value that
+    rounds to zero in it), is not q = -1; a flipped zero is -0."""
+    rng = np.random.default_rng(34)
+    planes = _houdayer_pairs(35, 3, (64, 64), dtype, cuda)
+    mags = torch.tensor([1.0, 0.5, 3.0, 1e-30, 1e-50, 0.0], dtype=torch.float64)
+    planes = [(x.double() * mags[torch.from_numpy(rng.choice(6, tuple(x.shape),
+                                                             p=[0.8, 0.05, 0.05, 0.04, 0.04,
+                                                                0.02]))].to(cuda)).to(dtype)
+              for x in planes]
+    u = torch.tensor([0.1, 0.6, 0.9], device=cuda)
+    for periodic in (True, False):
+        _houdayer_both_ways(u, planes, periodic)
+
+
+def test_houdayer_kernel_launches_once_a_move_of_the_search(cuda):
+    """The PT search on the card launches K9 once a move, and counts its
+    growth steps while tracing (and only then): the CPU's count, rounded up
+    to the fixed-point tests, is at most GROWTH_CHECK - 1 more a move."""
+    rng = np.random.default_rng(33)
+    Jh, Jv = rng.choice([-1.0, 1.0], (2, 32, 32)).astype(np.float32)
+    kw = dict(temperatures=[0.5, 0.9, 1.5], n_iters=20, n_copies=2, houdayer_every=5,
+              quench_sweeps=4)
+    counts = {}
+    for device in (cuda, torch.device("cpu")):
+        launches = houdayer_cluster_kernel.launches
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            pt_ground_state_search(3, Jh, Jv, device=device, **kw)
+        counts[device.type] = (houdayer_cluster_kernel.launches - launches, profiling.counters())
+    steps = growth_steps(cuda)
+    before = int(steps)
+    pt_ground_state_search(3, Jh, Jv, device=cuda, **kw)
+    assert int(steps) == before
+    (launches, card), (none, cpu) = counts["cuda"], counts["cpu"]
+    assert launches == 4 and none == 0
+    assert card["houdayer.moves"] == cpu["houdayer.moves"] == 4
+    assert 0 <= cpu["houdayer.growth_steps"] - card["houdayer.growth_steps"] \
+        <= 4 * (GROWTH_CHECK - 1)
 
 
 def _planes(seed, R, C, dtype, device):

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from tsu_tpu_torch import IsingGrid, profiling
+from tsu_tpu_torch.ops.houdayer_kernel import GROWTH_CHECK
 from tsu_tpu_torch.samplers import pt_ground_state_search
-from tsu_tpu_torch.samplers.tempering_ladder import DRAW_ITERS, GROWTH_CHECK
+from tsu_tpu_torch.samplers.tempering_ladder import DRAW_ITERS
 
 N_SAMPLES = 3
 PT = dict(temperatures=np.geomspace(0.4, 2.0, 4), n_copies=2, houdayer_every=2, n_iters=6,

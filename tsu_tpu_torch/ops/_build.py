@@ -142,6 +142,19 @@ def bond_sweep_library() -> ctypes.CDLL:
     return bond_library(library_path("checkerboard_bonds", ("checkerboard_bonds.cu",)))
 
 
+@functools.cache
+def houdayer_cluster_library() -> ctypes.CDLL:
+    """The Houdayer cluster-move kernel library (one launch a move of a batch
+    of replica pairs), built and loaded once per process."""
+    lib = ctypes.CDLL(str(library_path("houdayer_cluster", ("houdayer_cluster.cu",))))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tsu_houdayer_cluster.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
+    lib.tsu_houdayer_cluster.restype = i
+    lib.tsu_houdayer_smem_limit.argtypes = [ctypes.POINTER(i)]
+    lib.tsu_houdayer_smem_limit.restype = i
+    return lib
+
+
 def bond_library(path) -> ctypes.CDLL:
     """Load a build of a version of ``checkerboard_bonds.cu`` and declare
     its two C entries."""

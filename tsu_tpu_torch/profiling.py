@@ -101,6 +101,11 @@ def annotate(name: str, device: Optional[torch.device] = None):
     return _Span(name, torch.cuda.current_stream(device) if on_card else None)
 
 
+def tracing() -> bool:
+    """Whether tracing is on: a torch profiler session is active."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while tracing is on."""
     if torch.autograd.profiler._is_profiler_enabled:

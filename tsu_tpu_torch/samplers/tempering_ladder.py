@@ -41,13 +41,12 @@ from scipy.special import erfcinv, log_ndtr, ndtr
 
 from tsu_tpu_torch import profiling
 from tsu_tpu_torch.config import ConfigurationError
-from tsu_tpu_torch.ops.checkerboard import wrap_halos
 from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_sweep_keys
+from tsu_tpu_torch.ops.houdayer_kernel import growth_steps, houdayer_cluster
 from tsu_tpu_torch.rng import as_generator, fold_seed, fold_seed_tensor, philox_words
 from tsu_tpu_torch.checkpoint import checkpoint_exists, restore_state, save_state
 from tsu_tpu_torch.samplers.tempering import _BondPlaneOps, _swap_permutation
 
-GROWTH_CHECK = 16   # Houdayer cluster-growth steps between fixed-point tests
 SEARCH_STREAM = 2   # the search's stream scheme, recorded in its snapshots
 DRAW_ITERS = 256    # iterations whose draws are made in one go
 _ITERATION, _QUENCH = 0, 1   # Philox key1 of an iteration's words and of the quench's
@@ -278,58 +277,13 @@ def build_tempering_ladder(seed, Jh, Jv, *, T_min: float, T_max: float,
     return temperatures, info
 
 
-def _neighbor_or(mask, update_red: bool, periodic: bool):
-    """4-neighbour OR across the checkerboard bipartition: the neighbours of
-    one colour's sites are on the other colour's plane. A boolean mask has
-    no weights to zero, so an open lattice masks the horizontal wraps."""
-    R, C2 = mask.shape[-2:]
-    row_is_even = (torch.arange(R, device=mask.device) % 2 == 0)[:, None]
-    pick = row_is_even if update_red else ~row_is_even
-    up_row, down_row = wrap_halos(mask, periodic)
-    up = torch.cat([up_row, mask[..., :-1, :]], dim=-2)
-    down = torch.cat([mask[..., 1:, :], down_row], dim=-2)
-    left_shift = torch.roll(mask, 1, dims=-1)
-    right_shift = torch.roll(mask, -1, dims=-1)
-    if not periodic:
-        j = torch.arange(C2, device=mask.device)
-        # left_shift feeds only picked rows, whose left neighbour wraps at
-        # j == 0; right_shift only the others, wrapping at j == C2 - 1.
-        left_shift = left_shift & (j != 0)
-        right_shift = right_shift & (j != C2 - 1)
-    left = torch.where(pick, left_shift, mask)
-    right = torch.where(pick, mask, right_shift)
-    return up | down | left | right
-
-
 def _houdayer(u, r1, b1, r2, b2, periodic: bool):
     """Houdayer move of a batch of replica pairs with the seed site of pair
     i chosen by the uniform u[i]: the k-th q = -1 site (red plane first,
-    row-major) with k = floor(u[i] * count). The cluster grows until a step
-    changes nothing, tested every GROWTH_CHECK steps."""
+    row-major) with k = floor(u[i] * count). One K9 launch on the card, the
+    plain version on the CPU (``ops.houdayer_kernel.houdayer_cluster``)."""
     profiling.count("houdayer.moves")
-    qr = (r1.float() * r2.float()) < 0
-    qb = (b1.float() * b2.float()) < 0
-    B = qr.shape[0]
-    flat = torch.cat([qr.reshape(B, -1), qb.reshape(B, -1)], dim=1)
-    count = flat.sum(dim=1)
-    k = torch.minimum((u.to(torch.float64) * count).long(), (count - 1).clamp(min=0))
-    seed = flat & (torch.cumsum(flat, dim=1) == (k + 1)[:, None])
-    nred = qr[0].numel()
-    m_red, m_black = seed[:, :nred].view_as(qr), seed[:, nred:].view_as(qb)
-    while True:
-        with profiling.annotate("houdayer.grow_block"):
-            profiling.count("houdayer.growth_steps", GROWTH_CHECK)
-            for _ in range(GROWTH_CHECK):
-                prev_red, prev_black = m_red, m_black
-                m_red = m_red | (qr & _neighbor_or(m_black, True, periodic))
-                m_black = m_black | (qb & _neighbor_or(m_red, False, periodic))
-            # Each torch.equal reads its answer back from the device.
-            red_still = torch.equal(m_red, prev_red)
-            profiling.count("host_syncs", 1 + red_still)
-            if red_still and torch.equal(m_black, prev_black):
-                break
-    return (torch.where(m_red, -r1, r1), torch.where(m_black, -b1, b1),
-            torch.where(m_red, -r2, r2), torch.where(m_black, -b2, b2))
+    return houdayer_cluster(u, r1, b1, r2, b2, periodic)
 
 
 def houdayer_move(seed, r1, b1, r2, b2, *, periodic: bool = True):
@@ -343,10 +297,19 @@ def houdayer_move(seed, r1, b1, r2, b2, *, periodic: bool = True):
     Pairs that agree everywhere are left as they are. Inputs are the compact
     (B, R, C/2) planes of both replicas; returns the four updated planes.
     ``seed``: an int or a CPU ``torch.Generator``, from which one uniform
-    per pair is drawn.
+    per pair is drawn. On the card, while tracing, the move's growth steps
+    are read from the kernel's counter at its return.
     """
     u = torch.rand(r1.shape[0], generator=as_generator(seed)).to(r1.device)
-    return _houdayer(u, r1, b1, r2, b2, periodic)
+    planes = tuple(x.contiguous() for x in (r1, b1, r2, b2))
+    if r1.device.type != "cuda" or not profiling.tracing():
+        return _houdayer(u, *planes, periodic)
+    steps = growth_steps(r1.device)
+    steps.zero_()
+    out = _houdayer(u, *planes, periodic)
+    profiling.count("host_syncs")   # the counter's read
+    profiling.count("houdayer.growth_steps", int(steps))
+    return out
 
 
 def _iteration_draws(base: int, t0: int, t1: int, B: int, C: int, R: int, n_hd: int,
@@ -448,6 +411,11 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
         hd_rungs = max(1, int(round(R * houdayer_frac)))
         use_houdayer = houdayer_every > 0 and n_pairs > 0
         n_hd = n_pairs * hd_rungs if use_houdayer else 0
+        # K9 counts its growth steps on the card; read once, at the end.
+        card_steps = growth_steps(dev) if (use_houdayer and dev.type == "cuda"
+                                           and profiling.tracing()) else None
+        if card_steps is not None:
+            card_steps.zero_()
 
         reds, blacks = ops.init_planes(gen, B)
         base = int(torch.randint(0, 2**31, (), generator=gen))
@@ -546,6 +514,9 @@ def pt_ground_state_search(seed, Jh, Jv, *, temperatures, n_iters: int = 2000,
 
         with profiling.annotate("pt.readout"):
             profiling.count("host_syncs", 4)   # the four .cpu() reads below
+            if card_steps is not None:
+                profiling.count("host_syncs")
+                profiling.count("houdayer.growth_steps", int(card_steps))
             best_e_np = best_e.cpu().numpy()
             acc_np, att_np = acc_p.cpu().numpy(), att_p.cpu().numpy()
             i = int(best_e_np.argmin())
