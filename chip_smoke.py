@@ -126,16 +126,21 @@ Phases, each of which raises on failure:
     12-spin periodic IsingChain, a 3x5 periodic IsingGrid (the dense
     fall-back) and parallel_tempering_dense on 10 spins, against exact
     enumeration;
-25. the colour sweep replayed from its CUDA graph against the eager colour
-    loop on the same uniforms: a 4,096-spin SK instance (J_ij = ±1/sqrt(n),
-    4,096 colours), 8 chains, 2 sweeps, equal at every site outside the
-    1e-6 band around the threshold (the band's sites counted);
-26. the dense paths at full width: ms per 4,096-spin sweep eager and
-    graphed (CUDA events) and the host's launch calls per sweep of each; the
-    wall of IsingModel(4096).sample(64) with 8 chains, of a 63x65 periodic
-    IsingGrid.sample(64) (4,095 spins, the dense fall-back) and of
-    optimize(MaxCutProblem(W)) on G(2000, 0.5), its cut beside the native
-    greedy bound (3 restarts);
+25. the colour sweep replayed from its CUDA graph (the route forced)
+    against the eager colour loop on the same uniforms: a 4,096-spin SK
+    instance (J_ij = ±1/sqrt(n), 4,096 colours), 8 chains, 2 sweeps, equal
+    at every site outside the 1e-6 band around the threshold (the band's
+    sites counted); the fused sweep K10 on the same instance, each site's
+    decision against u < sigmoid(field / T) with the field taken in float64
+    from K10's own bits, outside the band; and K10 == the eager loop bit for
+    bit on the instance's integer bit form (4 J, -2 J 1);
+26. the dense paths at full width: ms per 4,096-spin sweep eager, graphed
+    (the route forced) and through K10 (CUDA events) and the host's launch
+    calls per sweep of each; the wall and the K10 launches of
+    IsingModel(4096).sample(64) with 8 chains (K10), of a 63x65 periodic
+    IsingGrid.sample(64) (4,095 spins, the dense fall-back, three wide
+    colours: the graph) and of optimize(MaxCutProblem(W)) on G(2000, 0.5)
+    (K10), its cut beside the native greedy bound (3 restarts);
 27. maxcut_sparse at the optimization suite's size (100,000 nodes, 500,000
     edges drawn as the suite draws them, 2,000 steps, 8 chains, after one
     warm-up call): the ELL build's seconds, the anneal's wall, the host's
@@ -271,15 +276,31 @@ Phases, each of which raises on failure:
     card ms a move on each route, launched one by one and from a CUDA graph
     of 100 moves, the routes in turns three times, its bound (the four
     planes read and the four written, over 3.35 TB/s) and the plain
-    version's ms a move.
+    version's ms a move;
+44. the fused dense colour sweep (K10, which replaces no TPU kernel): K10
+    == the eager colour loop bit for bit over 2 sweeps on the same uniforms
+    on every plan of integer couplings below that K10 holds (colours of one
+    site and of 8 to 256 sites, at 8 and 64 chains), and its ms a sweep
+    (CUDA events, median of 3) beside the graph route's at the same plan
+    and chains and the bound (J's n rows of 4n bytes over 3.35 TB/s; the
+    colours' dependent steps), at the SK cell's shape (4,096 spins x 64
+    rungs, the bit form), at phase 26's shapes (SK x 8, timed only; the
+    bit form of MAX-CUT on G(2000, 0.5) x 8 and x 64; the 63x65 grid x 8,
+    which K10 cannot hold), over colours of 8 to 256 sites at 4,096 sites
+    and 8 and 64 chains, and at 264 to 4,096 chains for SK, colours of 16
+    and 64 and the MAX-CUT plan (the route rule's threshold and its waves
+    of blocks, beside the blocks that the card runs at once); the plain
+    loop's ms at the cell's shape; one call of the cell's entry, which must
+    launch K10 once a sweep.
 
 A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:", a
-"slice 9:" and a "houdayer:" JSON log line carry those phases' numbers.
+"slice 9:", a "houdayer:" and a "dense fused:" JSON log line carry those
+phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
 card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
-and their CUDA counterparts, and K9, which replaces none; K1, K2 and K9
+and their CUDA counterparts, and K9 and K10, which replace none; K1, K2 and K9
 also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
@@ -343,6 +364,7 @@ from tsu_tpu_torch.benchmarks.scaling import (
     measure_bnn_dp_scaling,
     measure_lattice_matched,
 )
+from tsu_tpu_torch.energy import ising_to_boltzmann
 from tsu_tpu_torch.models import ml
 from tsu_tpu_torch.ops import sparse_ising
 from tsu_tpu_torch.models.lattice_sampler import sample_grid_ensemble
@@ -395,6 +417,8 @@ from tsu_tpu_torch.ops.houdayer_kernel import (
     houdayer_cluster_kernel,
     houdayer_cluster_reference,
 )
+from tsu_tpu_torch.ops import dense_sweep_kernel
+from tsu_tpu_torch.ops.dense_sweep_kernel import dense_colour_sweep
 from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
     decomposition_sweep,
@@ -418,7 +442,7 @@ from tsu_tpu_torch.samplers import (
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
-from tsu_tpu_torch.samplers import annealing, tempering_ladder
+from tsu_tpu_torch.samplers import annealing, gibbs, tempering_ladder
 from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper, colour_sweep
 from tsu_tpu_torch.samplers.hmc import hmc_adaptive_loops, hmc_loop, run_hmc, run_hmc_adaptive
 from tsu_tpu_torch.samplers.langevin import langevin_loop, run_langevin
@@ -1957,20 +1981,88 @@ def eager_sweep_band(plan, states, u, T):
     return band
 
 
-def dense_sk(dev):
+@contextlib.contextmanager
+def forced_dense_route(route: str):
+    """Sweepers made inside the block take ``route`` ("graph" or "fused")
+    whatever their plan, for timing one route against the other."""
+    real = gibbs.dense_route
+    gibbs.dense_route = lambda widest, chains, slots: route
+    try:
+        yield
+    finally:
+        gibbs.dense_route = real
+
+
+def sk_bit_form(n: int, seed: int = 0):
+    """The bit form (4 J, -2 J 1) of a ±1 SK instance, as the benchmark's
+    SK cell samples it: integer couplings and fields, every field exact."""
+    rng = np.random.default_rng(seed)
+    A = np.triu(rng.choice([-1.0, 1.0], (n, n)), 1)
+    J = A + A.T
+    return (4.0 * J).astype(np.float32), (-2.0 * J.sum(1)).astype(np.float32)
+
+
+def dense_sweeper(plan, chains, route=None, T=1.0):
+    """A sweeper of ``chains`` chains from bits drawn from seed 1, at
+    temperature ``T``, on ``route`` (the plan's own when None)."""
+    with contextlib.nullcontext() if route is None else forced_dense_route(route):
+        sweeper = DenseSweeper(plan, chains, 0)
+    sweeper.load((torch.rand((chains, plan.n), generator=torch.Generator().manual_seed(1)) < 0.5)
+                 .float())
+    sweeper.set_temperature(T)
+    return sweeper
+
+
+def dense_sk(dev, route=None):
     n, chains, _ = DENSE
     plan = ColourPlan(sk_couplings(n), np.zeros(n), device=dev)
     if plan.n_colors != n:
         raise AssertionError(f"the SK instance has {plan.n_colors} colours, not {n}")
-    sweeper = DenseSweeper(plan, chains, 0)
-    sweeper.load((torch.rand((chains, n), generator=torch.Generator().manual_seed(1)) < 0.5)
-                 .float())
-    sweeper.set_temperature(1.0)
-    return plan, sweeper
+    return plan, dense_sweeper(plan, chains, route)
+
+
+def k10_against_eager(what, plan, chains, T, sweeps: int = 2) -> dict:
+    """K10 and the eager colour loop from the same bits on the same uniforms,
+    ``sweeps`` sweeps of ``chains`` chains of a plan of integer couplings
+    and fields, whose every field is exact: they must agree bit for bit.
+    Returns the largest difference of a bit (0.0) and the share of bits
+    that the sweeps moved; raises on any difference."""
+    fused = dense_sweeper(plan, chains, "fused", T)
+    eager, start = fused.states.clone(), fused.states.clone()
+    gen = torch.Generator(fused.u.device).manual_seed(5)
+    for _ in range(sweeps):
+        u = torch.rand(fused.u.shape, device=fused.u.device, generator=gen)
+        fused.u.copy_(u)
+        dense_colour_sweep(plan, fused.states, fused.u, fused.T)
+        colour_sweep(plan, eager, u, fused.T)
+        differ = int((fused.states != eager).sum())
+        if differ:
+            raise AssertionError(f"K10 != the eager loop on {what} (widest colour "
+                                 f"{plan.widest}): {differ} sites differ")
+    return {"max_abs_err": float((fused.states - eager).abs().max()),
+            "moved": float((fused.states != start).float().mean())}
+
+
+def teacher_forced_band(plan, old, new, u, T):
+    """K10's sweep of a plan of a site a colour, site by site in float64:
+    site k's field from the new bits before k and the old bits after it.
+    Returns (the sites whose uniform lay within BAND of their probability,
+    the decisions outside it that break u < p)."""
+    J = plan.J.double()
+    old, new = old.double(), new.double()
+    field = (new @ torch.tril(J, -1).T + old @ torch.triu(J, 1).T + plan.h.double()
+             + (J.diagonal() - plan.diag.double()) * old)
+    p = torch.sigmoid(field / T.double())
+    band = (u.double() - p).abs() <= BAND
+    broken = (new != (u.double() < p).double()) & ~band
+    return int(band.sum()), int(broken.sum())
 
 
 def phase_dense_graph(dev):
-    plan, sweeper = dense_sk(dev)
+    """Phase 25: the graphed colour sweep == the eager one outside the band,
+    and K10 checked site by site on the same instance, and bit for bit
+    against the eager loop on its integer bit form."""
+    plan, sweeper = dense_sk(dev, "graph")
     t0 = time.perf_counter()
     sweeper.run(1)                      # warm-up and capture
     torch.cuda.synchronize()
@@ -1991,11 +2083,31 @@ def phase_dense_graph(dev):
         eager.copy_(sweeper.states)
     log(f"4096-spin SK, 8 chains, 2 sweeps: graph == eager outside the band; {n_band} band "
         f"sites, {n_differ} differ; capture with its warm-up sweep {capture_s:.3f} s")
-    return {"capture_s": capture_s, "band_sites": n_band, "band_differ": n_differ}
+
+    fused = dense_sweeper(plan, DENSE[1])
+    if fused.route != "fused":
+        raise AssertionError(f"the SK plan took the {fused.route} route, not K10")
+    k10_band = 0
+    for k in range(2):
+        old = fused.states.clone()
+        fused.u.copy_(u[k])
+        dense_colour_sweep(plan, fused.states, fused.u, fused.T)
+        got, broken = teacher_forced_band(plan, old, fused.states, u[k], fused.T)
+        k10_band += got
+        if broken:
+            raise AssertionError(f"K10 broke u < sigmoid(field / T) at {broken} sites outside "
+                                 "the band")
+    J, h = sk_bit_form(DENSE[0])
+    k10_against_eager("the SK bit form x 8", ColourPlan(J, h, device=dev), DENSE[1], 64.0)
+    log(f"4096-spin SK, 8 chains, 2 sweeps: K10 decides every site by its own field outside "
+        f"the band ({k10_band} band sites); on the bit form (4 J, -2 J 1) K10 == eager bit "
+        "for bit")
+    return {"capture_s": capture_s, "band_sites": n_band, "band_differ": n_differ,
+            "k10_band_sites": k10_band}
 
 
 def phase_dense_paths(dev, name):
-    plan, sweeper = dense_sk(dev)
+    plan, sweeper = dense_sk(dev, "graph")
     sweeper.run(1)
     eager_ms = time_sweeps(lambda k: [colour_sweep(plan, sweeper.states, sweeper.u, sweeper.T)
                                       for _ in range(k)], 2)
@@ -2003,41 +2115,63 @@ def phase_dense_paths(dev, name):
     eager_launches = host_launches(lambda: colour_sweep(plan, sweeper.states, sweeper.u,
                                                         sweeper.T))
     graph_launches = host_launches(lambda: sweeper.run(1))
+    fused = dense_sweeper(plan, DENSE[1])
+    fused.run(1)
+    fused_ms = time_sweeps(fused.run, 20)
+    fused_launches = host_launches(lambda: fused.run(1))
     log(f"4096-spin SK sweep, 8 chains ({name}): eager {eager_ms:.6f} ms, {eager_launches} "
         f"host launch calls; graphed {graph_sweep_ms:.6f} ms, {graph_launches} host launch "
-        "calls (the uniforms' draw and the graph)")
+        f"calls (the uniforms' draw and the graph); K10 {fused_ms:.6f} ms, {fused_launches} "
+        "host launch calls (the uniforms' draw and K10)")
     out = {"eager_ms_per_sweep": eager_ms, "graph_ms_per_sweep": graph_sweep_ms,
            "eager_host_launches_per_sweep": eager_launches,
-           "graph_host_launches_per_sweep": graph_launches}
+           "graph_host_launches_per_sweep": graph_launches,
+           "fused_ms_per_sweep": fused_ms, "fused_host_launches_per_sweep": fused_launches}
 
     model = IsingModel(DENSE[0], config=IsingConfig(n_chains=DENSE[1]), seed=0, device=dev)
     model.J = sk_couplings(DENSE[0])
     torch.cuda.synchronize()
+    launched = dense_colour_sweep.launches
     t0 = time.perf_counter()
     s = model.sample(DENSE[2])
     out["ising_model_sample_s"] = time.perf_counter() - t0
+    out["ising_model_k10_launches"] = dense_colour_sweep.launches - launched
     if s.shape != (DENSE[2], DENSE[0]) or not np.all(np.abs(s) == 1.0):
         raise AssertionError("IsingModel(4096).sample returned no spins")
+    launched = dense_colour_sweep.launches
     t0 = time.perf_counter()
     s = IsingGrid((63, 65), periodic=True, seed=0, device=dev).sample(64)
     out["odd_grid_sample_s"] = time.perf_counter() - t0
+    out["odd_grid_k10_launches"] = dense_colour_sweep.launches - launched
     if s.shape != (64, 63 * 65) or not np.all(np.abs(s) == 1.0):
         raise AssertionError("IsingGrid((63, 65)).sample returned no spins")
 
-    rng = np.random.default_rng(2000)
-    W = np.triu((rng.random((2000, 2000)) < 0.5).astype(np.float32), 1)
-    W = W + W.T
+    W = maxcut_g2000()
+    launched = dense_colour_sweep.launches
     t0 = time.perf_counter()
     res = optimize(MaxCutProblem(W), seed=torch.Generator().manual_seed(0), device=dev)
     out["maxcut_dense_s"] = time.perf_counter() - t0
+    out["maxcut_dense_k10_launches"] = dense_colour_sweep.launches - launched
     cut = -res["best_objective"]
     greedy, _ = native.greedy_maxcut_csr(*native.csr_from_dense(W), n_restarts=3, seed=0)
     out.update(maxcut_dense_cut=cut, maxcut_dense_greedy=greedy)
-    log(f"IsingModel(4096).sample(64), 8 chains: {out['ising_model_sample_s']:.3f} s; "
-        f"IsingGrid((63, 65)).sample(64): {out['odd_grid_sample_s']:.3f} s; "
-        f"optimize(MaxCutProblem(G(2000, 0.5))): {out['maxcut_dense_s']:.3f} s, cut {cut:.1f} "
-        f"(native greedy bound {greedy:.1f})")
+    log(f"IsingModel(4096).sample(64), 8 chains: {out['ising_model_sample_s']:.3f} s "
+        f"({out['ising_model_k10_launches']} K10 launches); IsingGrid((63, 65)).sample(64): "
+        f"{out['odd_grid_sample_s']:.3f} s ({out['odd_grid_k10_launches']} K10 launches: three "
+        f"wide colours take the graph); optimize(MaxCutProblem(G(2000, 0.5))): "
+        f"{out['maxcut_dense_s']:.3f} s ({out['maxcut_dense_k10_launches']} K10 launches), cut "
+        f"{cut:.1f} (native greedy bound {greedy:.1f})")
+    if out["ising_model_k10_launches"] == 0 or out["maxcut_dense_k10_launches"] == 0 \
+            or out["odd_grid_k10_launches"] != 0:
+        raise AssertionError("a dense path took another route than the rule's")
     return out
+
+
+def maxcut_g2000():
+    """G(2000, 0.5), the dense MAX-CUT of phase 26."""
+    rng = np.random.default_rng(2000)
+    W = np.triu((rng.random((2000, 2000)) < 0.5).astype(np.float32), 1)
+    return W + W.T
 
 
 def phase_maxcut_sparse(dev):
@@ -3647,6 +3781,118 @@ def phase_houdayer(dev, name) -> dict:
     return out
 
 
+DENSE_CELL = (4096, 64)                  # the SK cell: spins, rungs
+DENSE_WIDTHS = (8, 16, 32, 64, 128, 256)  # colour widths of phase 44's route sweep at 4,096 sites
+DENSE_WAVES = (264, 528, 1056, 4096)      # chains of phase 44's sweep over waves of K10's blocks
+
+
+def torus_couplings(rows: int, cols: int) -> np.ndarray:
+    """The dense J = 1 couplings of a periodic rows x cols grid."""
+    J = np.zeros((rows * cols, rows * cols), np.float32)
+    for r in range(rows):
+        for c in range(cols):
+            i = r * cols + c
+            for j in (((r + 1) % rows) * cols + c, r * cols + (c + 1) % cols):
+                J[i, j] = J[j, i] = 1.0
+    return J
+
+
+def block_couplings(n: int, width: int):
+    """An SK bit form whose sites fall in colours of ``width`` (no coupling
+    inside a block of ``width`` sites), and those colours."""
+    J = sk_bit_form(n)[0] * np.kron(np.eye(n // width) == 0, np.ones((width, width)))
+    return J.astype(np.float32), np.arange(n).reshape(-1, width)
+
+
+def phase_dense_fused(dev, name) -> dict:
+    """Phase 44: K10 == the eager loop bit for bit on each plan of integer
+    couplings that it holds (k10_against_eager), and its ms a sweep, CUDA
+    events, median of 3, beside the graph route's at the same plan and
+    chains, the bound (J's n rows of 4n bytes over 3.35 TB/s; n_colors
+    dependent steps), at the SK cell's shape and at phase 26's, then over
+    colour widths at 4,096 sites and over chains beyond one wave of K10's
+    blocks for the route rule; the plain loop's ms at the cell's shape;
+    K10's launches in one call of the cell's entry."""
+    def timed(sweeper, sweeps):
+        sweeper.run(1)
+        return float(np.median([time_sweeps(sweeper.run, sweeps) for _ in range(3)]))
+
+    def both(label, plan, chains, T, graph_sweeps=3, exact=True):
+        slots = dense_sweep_kernel.blocks_at_once(plan.n, plan.widest, dev)
+        row = {"n": plan.n, "chains": chains, "colours": plan.n_colors, "widest": plan.widest,
+               "slots": slots, "route": gibbs.dense_route(plan.widest, chains, slots),
+               "bound_ms": bound_ms(4 * plan.n * plan.n), "dependent_steps": plan.n_colors,
+               "fused_ms": None}
+        if dense_sweep_kernel.geometry(plan.n, plan.widest) is not None:
+            if exact:
+                row.update(k10_against_eager(label, plan, chains, T))
+            row["fused_ms"] = timed(dense_sweeper(plan, chains, "fused", T), 10)
+        row["graph_ms"] = timed(dense_sweeper(plan, chains, "graph", T), graph_sweeps)
+        fused = "none" if row["fused_ms"] is None else f"{row['fused_ms']:.4f}"
+        log(f"phase 44: {label}: {plan.n} sites, {plan.n_colors} colours (widest "
+            f"{plan.widest}), {chains} chains, route {row['route']}: K10 {fused} ms a sweep, "
+            f"graph {row['graph_ms']:.4f}; bound {row['bound_ms']:.4f} ms (bytes), "
+            f"{plan.n_colors} dependent steps")
+        torch.cuda.empty_cache()
+        return row
+
+    n, R = DENSE_CELL
+    J, h = sk_bit_form(n)
+    cell = ColourPlan(J, h, device=dev)
+    temps = torch.as_tensor(np.geomspace(0.3, 1.5, R) * np.sqrt(n), dtype=torch.float32)
+    out = {"card": name, "shapes": {"sk cell 4096 x 64": both("the SK cell", cell, R, temps)}}
+    plain = dense_sweeper(cell, R, "fused", temps)
+    out["plain_ms"] = time_sweeps(lambda k: [colour_sweep(cell, plain.states, plain.u, plain.T)
+                                             for _ in range(k)], 2)
+    J, h = sk_couplings(n), np.zeros(n, np.float32)
+    out["shapes"]["sk 4096 x 8"] = both("phase 26's SK", ColourPlan(J, h, device=dev),
+                                        DENSE[1], 1.0, exact=False)
+    W = maxcut_g2000()
+    maxcut = ColourPlan(*ising_to_boltzmann(-W, np.zeros(2000, np.float32)), device=dev)
+    for chains in (8, R):
+        out["shapes"][f"maxcut g2000 x {chains}"] = both(
+            "phase 26's MAX-CUT on G(2000, 0.5), its bit form", maxcut, chains,
+            float(np.sqrt(2000)), 10)
+    out["shapes"]["grid 63x65 x 8"] = both(
+        "phase 26's 63x65 grid", ColourPlan(torus_couplings(63, 65), np.zeros(63 * 65),
+                                            device=dev), 8, 2.0, 10)
+    blocks = {}
+    for width in DENSE_WIDTHS:
+        Jw, colors = block_couplings(n, width)
+        blocks[width] = ColourPlan(Jw, np.zeros(n), colors, device=dev)
+    for chains in (8, R):
+        for width, plan in blocks.items():
+            out["shapes"][f"width {width} x {chains}"] = both(
+                f"colours of {width}", plan, chains, 64.0, 3 if width < 64 else 10)
+    for key, label, plan, T in (("sk", "the SK bit form", cell, 64.0),
+                                ("width 16", "colours of 16", blocks[16], 64.0),
+                                ("width 64", "colours of 64", blocks[64], 64.0),
+                                ("maxcut g2000", "MAX-CUT on G(2000, 0.5)", maxcut,
+                                 float(np.sqrt(2000)))):
+        for chains in DENSE_WAVES:
+            out["shapes"][f"{key} x {chains}"] = both(f"{label}, waves of blocks", plan, chains,
+                                                      T)
+
+    Jc, hc = sk_bit_form(n, 1)
+    torch.cuda.synchronize()
+    launched = dense_colour_sweep.launches
+    t0 = time.perf_counter()
+    states, _ = parallel_tempering_dense(1, Jc, hc, temperatures=temps, n_samples=64,
+                                         swap_interval=1, n_burnin=0, keep="all", device=dev)
+    torch.cuda.synchronize()
+    out["cell_call_s"] = time.perf_counter() - t0
+    out["cell_call_launches"] = dense_colour_sweep.launches - launched
+    if out["cell_call_launches"] != 64 or states.shape != (64, R, n):
+        raise AssertionError(f"the SK cell's call launched K10 {out['cell_call_launches']} "
+                             "times, not once a sweep")
+    out["card_ms"] = out["shapes"]["sk cell 4096 x 64"]["fused_ms"]
+    out["max_abs_err"] = max(row.get("max_abs_err", 0.0) for row in out["shapes"].values())
+    log(f"phase 44: K10 at the SK cell's shape {out['card_ms']:.4f} ms a sweep, the plain loop "
+        f"{out['plain_ms']:.3f}; one call of the cell's entry {out['cell_call_s']:.3f} s with "
+        f"{out['cell_call_launches']} K10 launches, on {name}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3831,6 +4077,10 @@ def main() -> int:
         "and from a graph")
     log("houdayer: " + json.dumps(houdayer))
 
+    dense_fused = phase_dense_fused(dev, name)
+    log("phase 44: K10 timed beside the graph route; the SK cell's call launched it once a sweep")
+    log("dense fused: " + json.dumps(dense_fused))
+
     def slice9_launches(k):
         """The examples that launched kernel k, with their launches."""
         i = NAMES.index(k)
@@ -3956,6 +4206,17 @@ def main() -> int:
               2 * 2 * 2 * HOUDAYER_PAIRS * PT_SHAPE[0] * PT_SHAPE[1], graph_ms=houdayer["graph_ms"],
               global_ms=houdayer["global_card_ms"], global_graph_ms=houdayer["global_graph_ms"],
               growth_steps=houdayer["growth_steps"], slice7_launches=slice7_launches("K9")),
+        # K10 replaces no TPU kernel; it is checked site by site (phase 25) and
+        # bit for bit on integer couplings (phase 44's error, the largest
+        # difference of a bit); a sweep of the SK cell reads J once and the
+        # chains' states and uniforms.
+        entry("dense_colour_sweep", "tsu_tpu_torch/csrc/dense_colour_sweep.cu", None,
+              dense_fused["cell_call_launches"], dense_fused["max_abs_err"],
+              dense_fused["card_ms"], dense_fused["plain_ms"],
+              4 * DENSE_CELL[0] ** 2 + 3 * 4 * DENSE_CELL[0] * DENSE_CELL[1],
+              graph_route_ms=dense_fused["shapes"]["sk cell 4096 x 64"]["graph_ms"],
+              dependent_steps=DENSE_CELL[0],
+              shapes=dense_fused["shapes"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -266,7 +266,7 @@ def test_sweeper_is_reproducible_and_resumable_from_its_generators():
         sw.load(torch.zeros((4, 12)))
         sw.set_temperature(1.5)
     assert torch.equal(a.run(3), b.run(3))
-    assert not a.graph_mode
+    assert a.route == "eager"
 
 
 def test_parallel_tempering_cold_rung_matches_enumeration():

@@ -2,8 +2,8 @@
 and of a shard, the bond half-sweep of one lattice and of a batch of
 replicas, the resident multi-sweep kernel at one table and over a schedule,
 the fused sweep's decomposition variants, the exact-sigmoid half-sweep,
-the Houdayer cluster move) against their plain PyTorch versions, and the batched, spin-glass and
-sharded paths on the card against the same paths on the CPU.
+the Houdayer cluster move, the dense colour sweep) against their plain PyTorch versions, and the
+batched, spin-glass and sharded paths on the card against the same paths on the CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
 Hopper card and nvcc, run ``python -m pytest -m gpu tests/test_torch_gpu.py``;
@@ -1035,27 +1035,151 @@ def _sk(n, seed=0):
     return (A + A.T).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,chains,sequential", [(512, 8, False), (96, 3, True)])
-def test_dense_sweep_graph_equals_eager_on_the_same_uniforms(cuda, n, chains, sequential):
-    """The captured colour loop replays what the eager loop computes, at
-    every site outside the 1e-6 band around the threshold."""
+def _sk_bit_form(n, seed=0):
+    """The bit form (4 J, -2 J 1) of a ±1 SK instance: integer couplings and
+    fields, so every sum of a site's field is exact in float32."""
+    rng = np.random.default_rng(seed)
+    A = np.triu(rng.choice([-1.0, 1.0], (n, n)), 1)
+    J = A + A.T
+    return (4.0 * J).astype(np.float32), (-2.0 * J.sum(1)).astype(np.float32)
+
+
+def _torus(rows, cols):
+    """The dense couplings of a periodic rows x cols grid, J = 1."""
+    J = np.zeros((rows * cols, rows * cols), np.float32)
+    for r in range(rows):
+        for c in range(cols):
+            i = r * cols + c
+            for j in (((r + 1) % rows) * cols + c, r * cols + (c + 1) % cols):
+                J[i, j] = J[j, i] = 1.0
+    return J
+
+
+def _blocks(n, width):
+    """The SK bit form with no coupling inside each block of ``width``
+    sites, and those blocks as the colours."""
+    J, h = _sk_bit_form(n)
+    J = J * np.kron(np.eye(n // width) == 0, np.ones((width, width)))
+    return J.astype(np.float32), np.zeros(n, np.float32), np.arange(n).reshape(-1, width)
+
+
+def _maxcut_bits(n, seed=0):
+    """MAX-CUT on G(n, 1/2) in the bit form that the annealer samples:
+    J = -4 W, h = 2 W 1, integers."""
+    rng = np.random.default_rng(seed)
+    W = np.triu((rng.random((n, n)) < 0.5).astype(np.float32), 1)
+    W = W + W.T
+    return -4.0 * W, 2.0 * W.sum(1)
+
+
+@pytest.mark.parametrize("route,couplings,n,chains,sequential", [
+    ("graph", "sk", 512, 8, False),            # narrow colours, the graph forced
+    ("graph", "sk", 96, 3, True),
+    ("fused", "sk-bits", 512, 8, False),       # K10 on integer couplings
+    ("fused", "sk-bits", 96, 3, True),
+    ("graph", "torus", 63 * 65, 8, False),     # three wide colours take the graph
+    ("fused", "blocks16", 512, 8, False),      # K10 on colours of 16 sites
+    ("fused", "maxcut", 512, 64, False),       # K10 on a greedy colouring of G(512, 1/2)
+], ids=["graph-sk512", "graph-seq96", "fused-sk512", "fused-seq96", "graph-grid63x65",
+        "fused-blocks16", "fused-gnp512"])
+def test_dense_sweep_graph_equals_eager_on_the_same_uniforms(cuda, monkeypatch, route, couplings,
+                                                             n, chains, sequential):
+    """The card's route computes what the eager colour loop computes on the
+    same uniforms, bit for bit over 2 sweeps: the captured graph (forced for
+    a narrow plan, taken by a wide one) and, on integer couplings whose
+    fields are exact, the fused kernel K10 on colours of one site and of
+    several, whose launches and ``dense.fused_sweeps`` counter advance."""
+    from tsu_tpu_torch.ops.dense_sweep_kernel import dense_colour_sweep
+    from tsu_tpu_torch.samplers import gibbs
     from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper, colour_sweep
 
-    J = _sk(n)
-    plan = ColourPlan(J, np.zeros(n), sequential=sequential, device=cuda)
+    colors = None
+    if couplings == "sk":
+        J, h, scale = _sk(n), np.zeros(n), 1.0
+        monkeypatch.setattr(gibbs, "dense_route", lambda widest, chains, slots: "graph")
+    elif couplings == "sk-bits":
+        (J, h), scale = _sk_bit_form(n), 4.0 * np.sqrt(n)
+    elif couplings == "blocks16":
+        (J, h, colors), scale = _blocks(n, 16), 4.0 * np.sqrt(n)
+    elif couplings == "maxcut":
+        (J, h), scale = _maxcut_bits(n), 2.0 * np.sqrt(n)
+    else:
+        J, h, scale = _torus(63, 65), np.zeros(n), 4.0
+    plan = ColourPlan(J, h, colors, sequential=sequential, device=cuda)
     sw = DenseSweeper(plan, chains, 0)
+    assert sw.route == route
+    assert (plan.widest > 1) == (couplings in ("blocks16", "maxcut", "torus"))
     sw.load((torch.rand((chains, n), generator=torch.Generator().manual_seed(1)) < 0.5).float())
-    sw.set_temperature(torch.linspace(0.5, 2.0, chains))
-    sw.run(1)                                    # captures the graph
-    assert sw._graph is not None
+    sw.set_temperature(torch.linspace(0.5, 2.0, chains) * scale)
+    launched = dense_colour_sweep.launches
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        sw.run(1)                                    # captures the graph on its route
+    counts = profiling.counters()
+    if route == "graph":
+        assert sw._graph is not None and counts["dense.captures"] == 1
+        assert dense_colour_sweep.launches == launched
+    else:
+        assert sw._graph is None and "dense.captures" not in counts
+        assert counts["dense.fused_sweeps"] == 1 and dense_colour_sweep.launches == launched + 1
+    assert counts["dense.colour_steps"] == plan.n_colors * (1 + (route == "graph"))
     eager = sw.states.clone()
     u = torch.rand((2, chains, n), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
     for k in range(2):
         sw.u.copy_(u[k])
-        sw._graph.replay()
+        if route == "graph":
+            sw._graph.replay()
+        else:
+            dense_colour_sweep(plan, sw.states, sw.u, sw.T)
         colour_sweep(plan, eager, u[k], sw.T)
     torch.cuda.synchronize()
     assert int((sw.states != eager).sum()) == 0
+    assert 0 < int(sw.states.sum()) < chains * n
+
+
+def test_dense_fused_blocks_at_once_follow_the_cards_occupancy(cuda):
+    """K10's resident blocks, which the route rule divides the chains by:
+    at 4,096 sites a block's ~147 KB of shared memory leaves room for one
+    an SM; a small plan's blocks fit several an SM; a plan that no block
+    holds has none."""
+    from tsu_tpu_torch.ops.dense_sweep_kernel import blocks_at_once
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks_at_once(4096, 1, cuda) == sms
+    small = blocks_at_once(96, 1, cuda)
+    assert small % sms == 0 and small > sms
+    assert blocks_at_once(4097, 1, cuda) == 0
+
+
+def test_dense_fused_sweep_decides_each_site_by_its_own_field(cuda):
+    """K10 on the non-integer SK plan (J_ij = ±1/sqrt(n), a colour a site):
+    one sweep of 8 chains checked decision by decision. Site k's field is
+    taken in float64 from K10's own new bits before k and the old bits
+    after it; every decision equals u < sigmoid(field / T) outside the
+    1e-6 band, where the order of a float32 sum may round either way."""
+    from tsu_tpu_torch.ops.dense_sweep_kernel import dense_colour_sweep
+    from tsu_tpu_torch.samplers.gibbs import ColourPlan, DenseSweeper
+
+    n, chains, band = 512, 8, 1e-6
+    plan = ColourPlan(_sk(n), np.zeros(n), device=cuda)
+    assert plan.n_colors == n
+    sw = DenseSweeper(plan, chains, 0)
+    assert sw.route == "fused"
+    sw.load((torch.rand((chains, n), generator=torch.Generator().manual_seed(3)) < 0.5).float())
+    sw.set_temperature(torch.linspace(0.5, 2.0, chains))
+    old = sw.states.double()
+    u = torch.rand((chains, n), device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    sw.u.copy_(u)
+    dense_colour_sweep(plan, sw.states, sw.u, sw.T)
+    new = sw.states.double()
+    J = plan.J.double()
+    field = (new @ torch.tril(J, -1).T + old @ torch.triu(J, 1).T + plan.h.double()
+             + (J.diagonal() - plan.diag.double()) * old)
+    p = torch.sigmoid(field / sw.T.double())
+    outside = (u.double() - p).abs() > band
+    assert torch.equal(new[outside], (u.double() < p).double()[outside])
+    assert int((~outside).sum()) < 10
+    assert 0 < int(new.sum()) < chains * n
 
 
 def test_dense_routes_on_the_card_match_enumeration(cuda):

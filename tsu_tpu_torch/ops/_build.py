@@ -155,6 +155,21 @@ def houdayer_cluster_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def dense_colour_sweep_library() -> ctypes.CDLL:
+    """The dense colour-sweep kernel library (one launch a sweep of a batch
+    of chains), built and loaded once per process."""
+    lib = ctypes.CDLL(str(library_path("dense_colour_sweep", ("dense_colour_sweep.cu",))))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tsu_dense_colour_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                           ctypes.c_longlong, p]
+    lib.tsu_dense_colour_sweep.restype = i
+    lib.tsu_dense_colour_sweep_blocks_per_sm.argtypes = [i, i, ctypes.c_longlong,
+                                                         ctypes.POINTER(i)]
+    lib.tsu_dense_colour_sweep_blocks_per_sm.restype = i
+    return lib
+
+
 def bond_library(path) -> ctypes.CDLL:
     """Load a build of a version of ``checkerboard_bonds.cu`` and declare
     its two C entries."""

@@ -65,7 +65,8 @@ def simulated_annealing_dense(seed, J, h, *, T_initial: float = 10.0, T_final: f
     n_chains <= 2^31) runs the native host loop (site by site in index
     order, chains one after another; the energy a numpy float32). Everything
     else anneals on ``device`` (default the card): all chains take one
-    colour sweep per temperature of the schedule (a CUDA graph on the card)
+    colour sweep per temperature of the schedule (on the card one launch
+    of the fused kernel, or a CUDA graph for wide colours)
     and the best state of each chain is tracked after every sweep, the
     initial state counting as a candidate; the energy is a float.
     ``seed``: an int or a CPU ``torch.Generator``.

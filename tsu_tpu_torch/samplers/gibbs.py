@@ -24,13 +24,20 @@ colours (of the sites, for the sequential route) every sweep. The JAX
 package's one-hot tables and its gather budget served the TPU's matrix unit
 and have no counterpart here.
 
-**On the card a sweep is one CUDA graph** (:class:`DenseSweeper`): the
-colour loop is captured once per (plan, chains) and replayed every sweep.
-The sweep's uniforms are drawn by one ``torch.rand`` into the graph's static
-buffer before each replay, and the temperature is a device tensor in the
-graph, so annealing and tempering replay the same graph. A capture that
-fails raises. ``random_order`` runs the colour loop eagerly, one step at a
-time, as does every CPU run.
+**On the card a sweep is one launch or one CUDA graph** (:class:`DenseSweeper`),
+as :func:`dense_route` picks from the plan's widest colour, the chain count
+and the kernel's blocks that the card runs at once. A plan of narrow
+colours (a site a colour for SK and the sequential route, tens of sites for
+a dense MAX-CUT graph) sweeps in one launch of the hand-written kernel K10
+(``ops/dense_sweep_kernel.py:dense_colour_sweep``), which computes
+``colour_step`` site for site. A plan of wide colours (a dense lattice's
+few colours of ~n/2 sites), where one matrix product a colour is the better
+tool, replays a CUDA graph of the colour loop, captured once per (plan,
+chains). Either way the sweep's uniforms are drawn by one ``torch.rand``
+before the sweep and the temperature is a device tensor, so annealing and
+tempering reuse the launch or the graph. A capture that fails raises.
+``random_order`` runs the colour loop eagerly, one step at a time, as does
+every CPU run.
 
 Routes of :meth:`GibbsSampler.sample_boltzmann` (``last_route``):
 ``"native_cpp"`` for tiny sequential or random-order jobs without an initial
@@ -48,7 +55,15 @@ import torch
 
 from tsu_tpu_torch import profiling
 from tsu_tpu_torch.config import GibbsConfig, SamplingError, resolve_device
+from tsu_tpu_torch.ops import dense_sweep_kernel
 from tsu_tpu_torch.rng import as_generator, device_generator
+
+# The widest colour, times the waves of blocks that the chains take, that
+# the fused kernel sweeps. At 4,096 sites on an H100, K10 against the graph
+# in ms a sweep: colours of 64, 1.09 / 1.32 at 8 chains (a wave), 4.34 /
+# 2.83 at 528 (four); of 128, 1.07 / 0.68 at 8; of 16, 10.0 / 11.2 at 1,056
+# (eight waves), 39.9 / 29.4 at 4,096 (PERF.md §6, chip_smoke.py phase 44).
+FUSED_WIDEST = 64
 
 
 def color_groups(J, atol: float = 0.0) -> np.ndarray:
@@ -120,6 +135,7 @@ class ColourPlan:
         self.device = resolve_device(device)
         self.perm = perm
         self.bounds = [(int(e - s), int(e)) for s, e in zip(sizes, ends) if s > 0]
+        self.widest = max(b - a for a, b in self.bounds)
         perm_t = torch.from_numpy(perm)
         Jp = torch.from_numpy(J)[perm_t][:, perm_t].contiguous()
         profiling.count("host_syncs", 5)   # the five copies in, from pageable memory
@@ -129,6 +145,7 @@ class ColourPlan:
         self.h = torch.from_numpy(h)[perm_t].to(self.device)
         self.diag = torch.diagonal(Jp).contiguous().to(self.device)
         self._graphs = {}       # chains -> [states, u, T, CUDA graph or None]
+        self._fused = None
 
     @property
     def n_colors(self) -> int:
@@ -141,6 +158,18 @@ class ColourPlan:
     def from_plan(self, states: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(..., n) states in plan order -> site order."""
         return torch.index_select(states, -1, self.inv_t.to(states.device), out=out)
+
+    def fused_operands(self) -> tuple:
+        """(J, h, diag, ends, widest) as the fused sweep takes them: J with
+        its rows padded with zeros to a multiple of 4 columns, and the
+        colours' ends as an int32 tensor, made at the first call."""
+        if self._fused is None:
+            pad = -self.n % 4
+            J = torch.nn.functional.pad(self.J, (0, pad)) if pad else self.J
+            ends = torch.tensor([b for _, b in self.bounds], dtype=torch.int32)
+            profiling.count("host_syncs")   # the ends copied in, from pageable memory
+            self._fused = (J, self.h, self.diag, ends.to(self.device), self.widest)
+        return self._fused
 
     def graph_slot(self, chains: int) -> list:
         """The static buffers (states, uniforms, temperatures) of the graphed
@@ -176,6 +205,26 @@ def colour_sweep(plan: ColourPlan, states: torch.Tensor, u: torch.Tensor, T: tor
         colour_step(states, plan.J, plan.h, plan.diag, u, T, a, b)
 
 
+def dense_route(widest: int, chains: int, slots: int) -> str:
+    """The card's route for a sweep of ``chains`` chains over a plan whose
+    widest colour has ``widest`` sites: ``"fused"`` (one launch of K10) or
+    ``"graph"`` (a CUDA graph of colour steps). ``slots``: the K10 blocks,
+    a block a chain, that the card runs at once for the plan, 0 where no
+    launch fits it (:func:`dense_sweep_kernel.blocks_at_once`).
+
+    K10 pays each site of a colour a block-wide sum, where a colour step
+    pays a few launches and one matrix product, so wide colours favour the
+    graph; chains beyond the slots run in further waves, each paying every
+    site again, where the graph's matrix products grow more slowly. So K10
+    takes the plan where the widest colour times the waves is at most
+    ``FUSED_WIDEST``.
+    """
+    if slots < 1:
+        return "graph"
+    waves = -(-chains // slots)
+    return "fused" if widest * waves <= FUSED_WIDEST else "graph"
+
+
 _SIDE_STREAMS = {}   # device -> the stream that every capture on it warms up on
 
 
@@ -194,11 +243,12 @@ class DenseSweeper:
 
     ``seed``: an int or a CPU ``torch.Generator``; the device generator of
     the sweeps' uniforms is seeded from it, and ``random_order`` draws each
-    sweep's colour order from it. On a CUDA device (and without
-    ``random_order``) a sweep replays a CUDA graph of the colour loop,
-    captured at the plan's first sweep of this many chains; the sweepers
-    of one plan and chain count share its buffers, so they take turns.
-    Elsewhere the loop runs eagerly.
+    sweep's colour order from it. ``route``: on a CUDA device (and without
+    ``random_order``) :func:`dense_route`'s pick, ``"fused"`` (a sweep is one
+    launch of K10) or ``"graph"`` (a sweep replays a CUDA graph of the
+    colour loop, captured at the plan's first sweep of this many chains;
+    the sweepers of one plan and chain count share its buffers, so they
+    take turns); elsewhere ``"eager"``, the colour loop run step by step.
     """
 
     def __init__(self, plan: ColourPlan, chains: int, seed, *, random_order: bool = False):
@@ -207,8 +257,12 @@ class DenseSweeper:
         dev = plan.device
         self.dev_gen = device_generator(self.gen, dev)
         self.random_order = random_order
-        self.graph_mode = dev.type == "cuda" and not random_order
-        if self.graph_mode:
+        if dev.type != "cuda" or random_order:
+            self.route = "eager"
+        else:
+            self.route = dense_route(plan.widest, chains,
+                                     dense_sweep_kernel.blocks_at_once(plan.n, plan.widest, dev))
+        if self.route == "graph":
             self._slot = plan.graph_slot(chains)
             self.states, self.u, self.T = self._slot[:3]
         else:
@@ -263,10 +317,14 @@ class DenseSweeper:
     def run(self, n_sweeps: int = 1) -> torch.Tensor:
         """``n_sweeps`` sweeps, each on fresh uniforms; returns the states
         (the sweeper's own buffer, in plan order)."""
-        if n_sweeps and self.graph_mode and self._slot[3] is None:
+        if n_sweeps and self.route == "graph" and self._slot[3] is None:
             with profiling.annotate("dense.capture"):
                 self._slot[3] = self._capture()
+        fused = self.route == "fused"
         profiling.count("dense.colour_steps", n_sweeps * self.plan.n_colors)
+        if fused:
+            self.plan.fused_operands()      # made at the first call, outside the sweeps' span
+            profiling.count("dense.fused_sweeps", n_sweeps)
         with profiling.annotate("dense.sweeps", self.u.device):
             for _ in range(n_sweeps):
                 torch.rand(self.u.shape, generator=self.dev_gen, device=self.u.device,
@@ -274,7 +332,9 @@ class DenseSweeper:
                 if self.random_order:
                     order = torch.randperm(self.plan.n_colors, generator=self.gen).tolist()
                     colour_sweep(self.plan, self.states, self.u, self.T, order)
-                elif self.graph_mode:
+                elif fused:
+                    dense_sweep_kernel.dense_colour_sweep(self.plan, self.states, self.u, self.T)
+                elif self.route == "graph":
                     self._slot[3].replay()
                 else:
                     colour_sweep(self.plan, self.states, self.u, self.T)

@@ -148,8 +148,9 @@ def parallel_tempering_dense(seed, J, h, *, temperatures, n_samples: int = 1000,
 
     ``temperatures``: (R,) rung temperatures, slot 0 the coldest. Each round
     takes ``n_sweeps`` colour sweeps of all replicas at once, each replica at
-    its own temperature (one CUDA graph a sweep on the card), then the
-    energies and, every swap_interval rounds, the adjacent swaps. ``seed``:
+    its own temperature (on the card one launch of the fused kernel a sweep,
+    or one CUDA graph a sweep for a plan of wide colours: ``gibbs.dense_route``),
+    then the energies and, every swap_interval rounds, the adjacent swaps. ``seed``:
     an int or a CPU ``torch.Generator``; the initial bits (R, n), then the
     swap uniforms (n_burnin + n_samples, R) are drawn from it, then one draw
     seeds the device generator, from which each sweep draws its (R, n)
