@@ -7,9 +7,9 @@ Run from the repository root:
 
 Phases, each of which raises on failure:
  1. print the card (nvidia-smi name and power limit), torch and CUDA versions,
-    and build the fused-sweep, the bond, the resident and the half-sweep
-    kernels (and the earlier bodies of the last two) from
-    tsu_tpu_torch/csrc, one nvcc per source, all at once;
+    and build every library of the loader's table (ops/_build.py: ENTRIES)
+    from tsu_tpu_torch/csrc through library(name), one nvcc per source, all
+    at once;
  2. kernel against its plain PyTorch version with injected uniforms, bit for
     bit: 3 sweeps over a temperature schedule at 4096^2 bf16 periodic, at
     1002x1000 f32 open and at 4096x4094 bf16 (C/2 = 2047, not a multiple of
@@ -83,8 +83,7 @@ Phases, each of which raises on failure:
     schedule from T = 5 to 0.05, with launch counts (one K6 launch per
     resident_sweeps call, one K7 launch per anneal);
 18. K6 and K7 ms per sweep at 4096^2 bf16 (a 500-sweep call / 500) beside
-    K1's and the plain versions', in turns with the grid-stride body of
-    csrc/checkerboard_resident_gridstride.cu (old, new, new, old); the
+    K1's and the plain versions', two runs each; the
     grid (blocks, dynamic shared bytes a block, rows a band); the
     cost of the barriers and halo exchanges (K6 on one row a block); and
     each K8 variant's ms per sweep;
@@ -303,8 +302,8 @@ card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
 and their CUDA counterparts, and K9 and K10, which replace none; K1, K2 and K9
 also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
-times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 the
-grid-stride body's time, the barrier cost and the grid, K9 its times on
+times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 their
+runs, the barrier cost and the grid, K9 its times on
 the global route; K1-K5 and K9 the launches
 of each slice-7 path that ran them, K1-K3 those of each slice-8 path,
 summed over its ranks, K1, K4 and K5 those of each example of phase 42)
@@ -455,11 +454,10 @@ from tsu_tpu_torch.samplers.vi import run_vi, vi_loop
 from tsu_tpu_torch.tools import (
     bench,
     critical_ess,
-    halfsweep_bodies,
+    bodies,
     kernel_bench,
     kernel_decomposition,
     pt_spin_glass_probe,
-    resident_bodies,
     scaling_projection,
 )
 from tsu_tpu_torch.tools.profile_paths import (
@@ -1488,37 +1486,24 @@ def phase_tools(dev):
 
 
 def phase_resident_timing(dev, name, k1_ms, k1_plain_ms, dec):
-    """Phase 18; returns ms per sweep {K6, K7, their plain versions, the
-    grid-stride body's K6 and K7, K6 on one row per block (the barriers),
-    K8 plain per mode} and the grid."""
+    """Phase 18; returns ms per sweep {K6, K7 and two runs of each, their
+    plain versions, K6 on one row per block (the barriers), K8 plain per
+    mode} and the grid."""
     S = RESIDENT_SWEEPS
     gen = torch.Generator().manual_seed(19)
     red, black = (random_black(gen, MAIN_SHAPE, torch.bfloat16, dev) for _ in range(2))
     table = sigmoid_table(1.0, 0.0, 2.269).to(dev)
     tables = sigmoid_table(1.0, 0.0, torch.from_numpy(make_schedule(5.0, 0.05, S))).to(dev)
-    barrier = resident_bodies.barrier_shape(dev)
+    barrier = bodies.barrier_shape(dev)
     small = tuple(random_black(gen, barrier, torch.bfloat16, dev) for _ in range(2))
-    gridstride = resident_bodies.gridstride_library()
-
-    def old(*args):
-        return resident_bodies.gridstride_sweeps(gridstride, *args)
-
     resident_sweeps_table(1, red, black, table, 2)
-    old(1, red, black, table, 2)
     resident_sweeps_table_reference(1, red, black, table, 1)   # the plain version's first call
-    t = {}
-    # The grid-stride body and this one in turns: old, new, new, old.
-    for turn in ("old", "new", "new", "old"):
-        if turn == "old":
-            t.setdefault("K6 gridstride", []).append(time_sweeps(
-                lambda n: old(2, red, black, table, n), S))
-            t.setdefault("K7 gridstride", []).append(time_sweeps(
-                lambda n: old(3, red, black, tables[:n], n), S))
-        else:
-            t.setdefault("K6 runs", []).append(time_sweeps(
-                lambda n: resident_sweeps_table(2, red, black, table, n), S))
-            t.setdefault("K7 runs", []).append(time_sweeps(
-                lambda n: resident_anneal_tables(3, red, black, tables[:n]), S))
+    t = {"K6 runs": [], "K7 runs": []}
+    for _ in range(2):
+        t["K6 runs"].append(time_sweeps(
+            lambda n: resident_sweeps_table(2, red, black, table, n), S))
+        t["K7 runs"].append(time_sweeps(
+            lambda n: resident_anneal_tables(3, red, black, tables[:n]), S))
     t["K6"], t["K7"] = t["K6 runs"][0], t["K7 runs"][0]
     t["barrier"] = time_sweeps(lambda n: resident_sweeps_table(2, *small, table, n), S)
     t["K6 plain"] = time_sweeps(lambda n: resident_sweeps_table_reference(
@@ -1538,9 +1523,7 @@ def phase_resident_timing(dev, name, k1_ms, k1_plain_ms, dec):
         f"ms/sweep ({S}-sweep schedule); K1 {k1_ms:.6f} ms/sweep (phase 6): K6 "
         f"{'below' if t['K6'] < k1_ms else 'NOT below'} K1; plain K6 {t['K6 plain']:.6f}, "
         f"K7 {t['K7 plain']:.6f}, K1 {k1_plain_ms:.6f} ms/sweep")
-    log(f"timing K6/K7 in turns with the grid-stride body (old, new, new, old): K6 "
-        f"{t['K6 runs']} vs {t['K6 gridstride']}, K7 {t['K7 runs']} vs {t['K7 gridstride']} "
-        "ms/sweep")
+    log(f"timing K6/K7, two runs each: K6 {t['K6 runs']}, K7 {t['K7 runs']} ms/sweep")
     log(f"resident grid at {MAIN_SHAPE}: {plan.blocks} blocks ({plan.bands} bands x "
         f"{plan.ranges} ranges), {plan.smem_bytes} B of dynamic shared "
         f"memory a block, {min(rows)}-{max(rows)} rows a band; barriers and halo exchange: "
@@ -1574,7 +1557,7 @@ def compare_halfsweeps(other, steps, first, halos=None, uniforms=None, **where):
         kw = dict(update_red=color == 0, key=key, uniforms=None if uniforms is None else uniforms[i],
                   temperature=2.269, J=1.0, field=0.1, **where)
         got = halfsweep(other, up, down, **kw, **cols)
-        old = halfsweep_bodies.body_halfsweep(first, other, up, down, **kw, **first_cols)
+        old = bodies.body_halfsweep(first, other, up, down, **kw, **first_cols)
         want = halfsweep_reference(other, up, down, **kw, **cols)
         band = halfsweep_band(other, up, down, **kw, **cols)
         if not torch.equal(got, old):
@@ -1614,7 +1597,7 @@ def shard_halos(gen, R, C2, dtype, dev, kind):
 def phase_halfsweep_exact(dev, gen, cgen):
     """Phase 19; returns (K3 max abs err, band sites, band sites that
     differ, K1 shard-mode max abs err)."""
-    first = halfsweep_bodies.scalar_library()
+    first = bodies.scalar_library()
     steps = [(c, bond_key(90 + k, c, k)) for k in range(2) for c in (0, 1)]
     err3 = n_band = n_differ = 0
     for shape, dtype, periodic in ((MAIN_SHAPE, torch.float32, True),
@@ -1834,18 +1817,18 @@ def phase_sharded_timing(dev, name):
     and at a 2048^2 f32 shard, in turns (first, this, this, first); K3
     plain; K1 shard; K1 shard plain; host per sharded sweep on rows=4 and on
     2 x 2}."""
-    work = halfsweep_bodies.shapes(dev)
-    libs = {"this": _build.halfsweep_library(), "first": halfsweep_bodies.scalar_library()}
+    work = bodies.k3_shapes(dev)
+    libs = {"this": _build.library("checkerboard_halfsweep"), "first": bodies.scalar_library()}
     t = {}
     for turn in ("first", "this", "this", "first"):
         for label, w in work.items():
             t.setdefault(f"{turn} {label}", []).append(
-                graph_ms(halfsweep_bodies.timed(libs[turn], w), 1000))
+                graph_ms(bodies.k3_timed(libs[turn], w), 1000))
     f32, bf16, shard_label = work
     for key, label in (("K3", f32), ("K3 bf16", bf16), ("K3 shard", shard_label)):
         t[key], t[f"{key} first"] = t[f"this {label}"][0], t[f"first {label}"][0]
-    halfsweep_bodies.timed(None, work[f32])(2)           # the plain version's first call
-    t["K3 plain"] = time_sweeps(halfsweep_bodies.timed(None, work[f32]), 20)
+    bodies.k3_timed(None, work[f32])(2)           # the plain version's first call
+    t["K3 plain"] = time_sweeps(bodies.k3_timed(None, work[f32]), 20)
     R, C2 = SHARD[0], SHARD[1] // 2
     gen = torch.Generator().manual_seed(61)
     black = random_black(gen, SHARD, torch.bfloat16, dev)
@@ -3702,12 +3685,9 @@ def k9_global_route(u, r1, b1, r2, b2, periodic):
     scratch = torch.empty((B, 4, R, -(-C2 // 32)), dtype=torch.int32, device=r1.device)
     outs = [torch.empty_like(x) for x in planes]
     steps = torch.empty(B, dtype=torch.int32, device=r1.device)
-    err = _build.houdayer_cluster_library().tsu_houdayer_cluster(
-        *(x.data_ptr() for x in planes), *(x.data_ptr() for x in outs), u.data_ptr(),
-        int(u.dtype == torch.float64), HOUDAYER_DTYPES[r1.dtype], B, R, C2, int(periodic),
-        scratch.data_ptr(), steps.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"K9 on the global route failed with CUDA error {err}")
+    _build.call(_build.library("houdayer_cluster").tsu_houdayer_cluster, r1.device, *planes,
+                *outs, u, int(u.dtype == torch.float64), HOUDAYER_DTYPES[r1.dtype], B, R, C2,
+                int(periodic), scratch, steps)
     return tuple(outs), steps
 
 
@@ -3904,15 +3884,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        list(pool.map(lambda build: build(), (_build.fused_sweep_library,
-                                              _build.bond_sweep_library,
-                                              _build.resident_sweep_library,
-                                              resident_bodies.gridstride_library,
-                                              _build.halfsweep_library,
-                                              halfsweep_bodies.scalar_library,
-                                              _build.houdayer_cluster_library)))
-    log("phase 1: built the fused-sweep, the bond, the resident (and its grid-stride body), "
-        "the half-sweep (and its first body) and the Houdayer cluster kernels in "
+        list(pool.map(_build.library, _build.ENTRIES))
+    log(f"phase 1: built {', '.join(_build.ENTRIES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator().manual_seed(0)
@@ -4126,7 +4099,7 @@ def main() -> int:
         ops = 2 * R * -(-C2 // 4) * PHILOX_INT32
         return {"bound_ms": ops / INT32_OPS_PER_S * 1e3, "bound_by": "operations",
                 "bytes_bound_ms": bound_ms((4 * 2 * site + 9 * 4 * (S if k == "K7" else 1)) / S),
-                "gridstride_ms": rt[f"{k} gridstride"], "runs_ms": rt[f"{k} runs"],
+                "runs_ms": rt[f"{k} runs"],
                 "barrier_ms": rt["barrier"], "grid": rt["grid"]}
 
     # Bytes a unit of work must move: K1 and K2 read black and write red and

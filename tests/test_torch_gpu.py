@@ -73,7 +73,7 @@ from tsu_tpu_torch.samplers import (
     parallel_tempering_lattice,
     pt_ground_state_search,
 )
-from tsu_tpu_torch.tools import halfsweep_bodies
+from tsu_tpu_torch.tools import bodies
 
 pytestmark = pytest.mark.gpu
 
@@ -658,7 +658,7 @@ def _halfsweep_both_bodies(rng, R, C2, dtype, periodic, col_halo, injected, devi
     last output: equal to the first body (checkerboard_halfsweep_scalar.cu)
     at every site, band included, and to the plain version outside the
     band. Returns the sites in the band."""
-    old = halfsweep_bodies.scalar_library()
+    old = bodies.scalar_library()
     other = _placed(_halo_spins(rng, (R, C2), dtype, "cpu"), device, offset)
     up, down, cols = _k3_halos(rng, R, C2, dtype, device, col_halo, halos)
     old_cols = {k: v.contiguous() for k, v in cols.items()}
@@ -672,7 +672,7 @@ def _halfsweep_both_bodies(rng, R, C2, dtype, periodic, col_halo, injected, devi
             kw = dict(update_red=color == 0, temperature=T, J=1.0, field=field,
                       periodic=periodic, key=(41 + color, k), row0=row0, col0=col0, uniforms=U)
             got = halfsweep(other, up, down, **kw, **cols)
-            first = halfsweep_bodies.body_halfsweep(old, other, up, down, **kw, **old_cols)
+            first = bodies.body_halfsweep(old, other, up, down, **kw, **old_cols)
             assert torch.equal(got, first), ("first body", k, color, int((got != first).sum()))
             band = halfsweep_band(other, up, down, **kw, **cols)
             _assert_bond_equal(got, halfsweep_reference(other, up, down, **kw, **cols), band)
@@ -744,8 +744,8 @@ def test_halfsweep_kernel_equals_its_first_body_at_every_site(cuda, shape, dtype
             kw = dict(update_red=color == 0, temperature=0.7, J=1.0, field=0.25,
                       periodic=periodic, key=(5, color), row0=row0, col0=col0, uniforms=U)
             got = halfsweep(other, up, down, **kw, **cols)
-            first = halfsweep_bodies.body_halfsweep(halfsweep_bodies.scalar_library(), other,
-                                                    up, down, **kw, **old_cols)
+            first = bodies.body_halfsweep(bodies.scalar_library(), other, up, down, **kw,
+                                          **old_cols)
             assert torch.equal(got, first), int((got != first).sum())
             n_band += int(halfsweep_band(other, up, down, **kw, **cols).sum())
             other = got

@@ -173,9 +173,7 @@ def test_import_pulls_in_no_jax_or_triton_and_builds_nothing():
         "                              n_samples=2, n_burnin=2, device='cpu')\n"
         "print(json.dumps({'jax': 'jax' in sys.modules,\n"
         "                  'triton': 'triton' in sys.modules,\n"
-        "                  'built': _build.fused_sweep_library.cache_info().currsize\n"
-        "                  + _build.bond_sweep_library.cache_info().currsize\n"
-        "                  + _build.halfsweep_library.cache_info().currsize}))\n"
+        "                  'built': _build.library.cache_info().currsize}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)

@@ -1,8 +1,8 @@
 """The port's measurement tools on the CPU: the headline bench,
 kernel_bench and kernel_decomposition run at 64^2 when asked for the CPU and
-raise without a card otherwise, as the body tools (bond_bodies,
-resident_bodies, halfsweep_bodies) do; importing the tools imports no JAX
-or Triton and builds nothing."""
+raise without a card otherwise, as the body tool (bodies, for K3, K4/K5
+and K6/K7) does; importing the tools imports no JAX or Triton and builds
+nothing."""
 
 import json
 import subprocess
@@ -17,11 +17,8 @@ from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.tools import (
     bench,
     bodies,
-    bond_bodies,
-    halfsweep_bodies,
     kernel_bench,
     kernel_decomposition,
-    resident_bodies,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -65,9 +62,9 @@ def test_kernel_bench_check_gives_moments():
                         "--trials", "1"]),
     lambda: kernel_bench.main(["all", "--size", "64", "--sweeps", "2", "--iters", "1"]),
     lambda: kernel_decomposition.main(["--size", "64", "--sweeps", "2"]),
-    lambda: bond_bodies.main(["--rounds", "1"]),
-    lambda: resident_bodies.main(["--rounds", "1", "--sweeps", "2"]),
-    lambda: halfsweep_bodies.main(["--rounds", "1"]),
+    lambda: bodies.main(["K4", "--rounds", "1"]),
+    lambda: bodies.main(["K6", "--rounds", "1", "--sweeps", "2"]),
+    lambda: bodies.main(["K3", "--rounds", "1"]),
 ])
 def test_tools_without_a_card_raise(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -90,14 +87,10 @@ def test_importing_the_tools_pulls_in_no_jax_or_triton_and_builds_nothing():
         "import json, sys\n"
         "import tsu_tpu_torch.tools.bench, tsu_tpu_torch.tools.kernel_bench\n"
         "import tsu_tpu_torch.tools.kernel_decomposition, tsu_tpu_torch.tools.profile_paths\n"
-        "import tsu_tpu_torch.tools.timing, tsu_tpu_torch.tools.bond_bodies\n"
-        "import tsu_tpu_torch.tools.resident_bodies, tsu_tpu_torch.tools.bodies\n"
-        "import tsu_tpu_torch.tools.halfsweep_bodies as hb\n"
+        "import tsu_tpu_torch.tools.timing, tsu_tpu_torch.tools.bodies\n"
         "from tsu_tpu_torch.ops import _build\n"
         "from tsu_tpu_torch.ops import checkerboard_resident as cr\n"
-        "libs = (_build.fused_sweep_library, _build.bond_sweep_library,\n"
-        "        _build.resident_sweep_library, cr.resident_grid, cr._card_limits,\n"
-        "        _build.halfsweep_library, hb.scalar_library)\n"
+        "libs = (_build.library, cr.resident_grid, cr._card_limits)\n"
         "print(json.dumps({'jax': 'jax' in sys.modules, 'triton': 'triton' in sys.modules,\n"
         "                  'tsu_tpu': 'tsu_tpu' in sys.modules,\n"
         "                  'built': sum(f.cache_info().currsize for f in libs)}))\n"
@@ -173,14 +166,16 @@ def test_body_versions_take_turns_forward_then_backward(names, rounds, want):
 
 def test_build_versions_builds_each_source_under_its_own_name(monkeypatch, tmp_path):
     """Each source is built as <prefix>_<i> from its absolute path and loaded
-    by the caller's loader; nothing is compiled here."""
+    with the entries of the library the caller names for it; nothing is
+    compiled here."""
     built = []
     monkeypatch.setattr(bodies._build, "library_path",
                         lambda name, sources: built.append((name, sources)) or f"{name}.so")
+    monkeypatch.setattr(bodies._build, "load", lambda name, path: (name, path))
     srcs = [str(tmp_path / "a.cu"), "tsu_tpu_torch/csrc/checkerboard_resident.cu"]
-    got = bodies.build_versions(srcs, "resident_body", lambda path: ("lib", path))
-    assert got == {srcs[0]: ("lib", "resident_body_0.so"),
-                   srcs[1]: ("lib", "resident_body_1.so")}
+    got = bodies.build_versions(srcs, "resident_body", lambda src: "checkerboard_resident")
+    assert got == {srcs[0]: ("checkerboard_resident", "resident_body_0.so"),
+                   srcs[1]: ("checkerboard_resident", "resident_body_1.so")}
     assert [name for name, _ in built] == ["resident_body_0", "resident_body_1"]
     assert all(Path(src[0]).is_absolute() for _, src in built)
 

@@ -58,8 +58,7 @@
 // sites' bits are merged into the word by two xor-shuffles across the
 // word's four lanes.
 //
-// Random numbers. Unchanged from the grid-stride body
-// (checkerboard_resident_gridstride.cu, kept to time against): each site
+// Random numbers. Unchanged from the first, grid-stride body: each site
 // takes one 32-bit word of Philox4x32-10 per half-step, keyed
 // (fold_seed(seed), 2 * sweep + colour) at counter (row, col / 4, 0, 0),
 // output col % 4; its top 24 bits are the uniform, held against the 24-bit

@@ -1,9 +1,15 @@
-"""Build the port's CUDA sources with nvcc at first use and load them.
+"""The seam between the port and its CUDA sources: build, load and call.
 
-Each library is compiled into ``build/tsu_tpu_torch/`` at the repository root,
-under a name keyed by a hash of its sources and flags, with a plain C
-interface, and loaded through ``ctypes``. Nothing is built when a module is
-imported: the first call that launches a kernel builds it.
+Each library, ``csrc/<name>.cu``, is compiled with nvcc into
+``build/tsu_tpu_torch/`` at the repository root, under a name keyed by a hash
+of its sources and flags, with a plain C interface, and loaded through
+``ctypes`` with the C entries that ``ENTRIES`` declares for it. Nothing is
+built when a module is imported: the first call that launches a kernel
+builds it. Every launch and every card query of the kernel wrappers runs
+through :func:`call`. A new kernel adds its ``.cu`` file, its rows in
+``ENTRIES`` and a wrapper that calls :func:`call`. What the wrappers share
+lives here too: the planes' dtypes, the grid's limits, the band of the
+exact-sigmoid kernels and :func:`check_on`.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tsu_tpu_torch"
@@ -61,123 +69,111 @@ def library_path(name: str, sources: tuple[str, ...]) -> Path:
     return out
 
 
-@functools.cache
-def fused_sweep_library() -> ctypes.CDLL:
-    """The fused-sweep kernel library (the single-lattice and the batched
-    kernel), built and loaded once per process."""
-    lib = ctypes.CDLL(str(library_path("checkerboard_fused",
-                                       ("checkerboard_fused.cu",))))
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.tsu_fused_sweep.argtypes = [p, p, p, p, p, i, i, i, u, u, i, p]
-    lib.tsu_fused_sweep.restype = i
-    lib.tsu_fused_sweep_shard.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, u,
-                                          u, i, p]
-    lib.tsu_fused_sweep_shard.restype = i
-    lib.tsu_fused_sweep_batched.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.tsu_fused_sweep_batched.restype = i
-    lib.tsu_decomposition_sweep.argtypes = [i, p, p, p, p, i, i, i, u, u, i, p]
-    lib.tsu_decomposition_sweep.restype = i
-    return lib
+PLANE_DTYPES = (torch.float32, torch.bfloat16)   # the lattice kernels' spin planes
+MAX_BATCH = 65535          # lattices or replicas a batched launch: the grid's z extent
+MAX_ROWS = 8 * 65535       # K3's grid (8 rows a block, gridDim.y <= 65535); the bond
+                           # kernels' grid (4 strips of >= 8 rows a block) holds 4x more
+CONTINUOUS_BAND = 1e-6     # |u - p| within which two right exp-based kernels may disagree
 
 
-@functools.cache
-def resident_sweep_library() -> ctypes.CDLL:
-    """The resident multi-sweep kernel library (one cooperative launch runs
-    S sweeps), built and loaded once per process."""
-    return resident_library(library_path("checkerboard_resident",
-                                         ("checkerboard_resident.cu",)))
+def check_on(device, **tensors):
+    """Raise unless each tensor given (None is skipped) is contiguous on
+    ``device``."""
+    for name, t in tensors.items():
+        if t is not None and (t.device != device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on {device}")
 
 
-def resident_library(path) -> ctypes.CDLL:
-    """Load a build of a version of ``checkerboard_resident.cu`` and declare
-    its C entries: the banded body's ``tsu_resident_run``,
-    ``tsu_resident_limits`` and ``tsu_resident_occupancy``, or the
-    grid-stride body's ``tsu_resident_sweeps``
-    (``checkerboard_resident_gridstride.cu``)."""
+_PLAIN = frozenset((int, float, bool, type(None)))   # arguments that pass as they are
+
+
+class Stream(ctypes.c_void_p):
+    """The cudaStream_t that ends a launch entry's arguments; :func:`call`
+    supplies it."""
+
+
+P, I, U, F, L, S = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+                    ctypes.c_longlong, Stream)
+IP = ctypes.POINTER(ctypes.c_int)
+
+# The C entries of each library and their argument types, in the order of
+# the extern "C" declarations of csrc/<library>.cu. Every entry returns its
+# CUDA error code, 0 on success.
+ENTRIES = {
+    "checkerboard_fused": {
+        "tsu_fused_sweep": (P, P, P, P, P, I, I, I, U, U, I, S),
+        "tsu_fused_sweep_shard": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, U, U, I, S),
+        "tsu_fused_sweep_batched": (P, P, P, P, P, P, I, I, I, I, I, S),
+        "tsu_decomposition_sweep": (I, P, P, P, P, I, I, I, U, U, I, S),
+    },
+    "checkerboard_bonds": {
+        "tsu_bond_halfsweep": (P, P, P, P, P, P, P, I, I, F, P, P, I, I, I, I, U, U, S),
+        "tsu_bond_halfsweep_batched": (P, P, P, P, P, P, P, I, I, P, P, P, P, I, I, I, I, I, S),
+    },
+    "checkerboard_halfsweep": {
+        "tsu_halfsweep": (P, P, P, P, P, P, L, L, P, I, I, I, I, F, F, F, I, I, U, U, I, S),
+    },
+    "checkerboard_halfsweep_scalar": {   # K3's first body, which tests hold K3 against
+        "tsu_halfsweep_scalar": (P, P, P, P, P, P, P, I, I, I, I, F, F, F, I, I, U, U, I, S),
+    },
+    "checkerboard_resident": {
+        "tsu_resident_limits": (IP, IP, IP),
+        "tsu_resident_occupancy": (I, I, IP),
+        "tsu_resident_run": (P, P, P, I, P, I, I, I, I, U, I, I, I, I, I, P, P, S),
+    },
+    "houdayer_cluster": {
+        "tsu_houdayer_cluster": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, S),
+        "tsu_houdayer_smem_limit": (IP,),
+    },
+    "dense_colour_sweep": {
+        "tsu_dense_colour_sweep": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, S),
+        "tsu_dense_colour_sweep_blocks_per_sm": (I, I, L, IP),
+    },
+}
+
+
+def load(name: str, path) -> ctypes.CDLL:
+    """Load the build at ``path`` of a version of library ``name``'s source
+    and declare the C entries ``ENTRIES`` gives that library."""
     lib = ctypes.CDLL(str(path))
-    p, i, u, ip = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.POINTER(ctypes.c_int)
-    if hasattr(lib, "tsu_resident_run"):
-        lib.tsu_resident_run.argtypes = [p, p, p, i, p, i, i, i, i, u, i, i, i, i, i, p, p, p]
-        lib.tsu_resident_run.restype = i
-        lib.tsu_resident_limits.argtypes = [ip, ip, ip]
-        lib.tsu_resident_limits.restype = i
-        lib.tsu_resident_occupancy.argtypes = [i, i, ip]
-        lib.tsu_resident_occupancy.restype = i
-    else:
-        lib.tsu_resident_sweeps.argtypes = [p, p, p, i, p, i, i, i, i, u, i, ip, p]
-        lib.tsu_resident_sweeps.restype = i
+    for entry, argtypes in ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
 @functools.cache
-def halfsweep_library() -> ctypes.CDLL:
-    """The exact-sigmoid half-sweep kernel library (one lattice or one
-    shard, with optional column halos), built and loaded once per process."""
-    return halfsweep_body_library(library_path("checkerboard_halfsweep",
-                                               ("checkerboard_halfsweep.cu",)))
+def library(name: str) -> ctypes.CDLL:
+    """Library ``name`` (a key of ``ENTRIES``), built from csrc/<name>.cu
+    and loaded once per process."""
+    return load(name, library_path(name, (f"{name}.cu",)))
 
 
-def halfsweep_body_library(path) -> ctypes.CDLL:
-    """Load a build of a version of the half-sweep kernel and declare its C
-    entry: the strip body's ``tsu_halfsweep``, whose column halos carry row
-    strides, or the first body's ``tsu_halfsweep_scalar``
-    (``checkerboard_halfsweep_scalar.cu``), whose columns are contiguous."""
-    lib = ctypes.CDLL(str(path))
-    p, i, u, f, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
-    if hasattr(lib, "tsu_halfsweep_scalar"):
-        lib.tsu_halfsweep_scalar.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, f, i, i, u, u,
-                                             i, p]
-        lib.tsu_halfsweep_scalar.restype = i
-    else:
-        lib.tsu_halfsweep.argtypes = [p, p, p, p, p, p, s, s, p, i, i, i, i, f, f, f, i, i, u, u,
-                                      i, p]
-        lib.tsu_halfsweep.restype = i
-    return lib
+def cuda_index(device) -> int:
+    """The index of CUDA ``device`` (a torch.device or its name): its own,
+    or the current device's where it names none."""
+    device = torch.device(device)
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
-@functools.cache
-def bond_sweep_library() -> ctypes.CDLL:
-    """The bond half-sweep kernel library (the single-lattice and the
-    batched kernel), built and loaded once per process."""
-    return bond_library(library_path("checkerboard_bonds", ("checkerboard_bonds.cu",)))
-
-
-@functools.cache
-def houdayer_cluster_library() -> ctypes.CDLL:
-    """The Houdayer cluster-move kernel library (one launch a move of a batch
-    of replica pairs), built and loaded once per process."""
-    lib = ctypes.CDLL(str(library_path("houdayer_cluster", ("houdayer_cluster.cu",))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tsu_houdayer_cluster.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
-    lib.tsu_houdayer_cluster.restype = i
-    lib.tsu_houdayer_smem_limit.argtypes = [ctypes.POINTER(i)]
-    lib.tsu_houdayer_smem_limit.restype = i
-    return lib
-
-
-@functools.cache
-def dense_colour_sweep_library() -> ctypes.CDLL:
-    """The dense colour-sweep kernel library (one launch a sweep of a batch
-    of chains), built and loaded once per process."""
-    lib = ctypes.CDLL(str(library_path("dense_colour_sweep", ("dense_colour_sweep.cu",))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tsu_dense_colour_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                           ctypes.c_longlong, p]
-    lib.tsu_dense_colour_sweep.restype = i
-    lib.tsu_dense_colour_sweep_blocks_per_sm.argtypes = [i, i, ctypes.c_longlong,
-                                                         ctypes.POINTER(i)]
-    lib.tsu_dense_colour_sweep_blocks_per_sm.restype = i
-    return lib
-
-
-def bond_library(path) -> ctypes.CDLL:
-    """Load a build of a version of ``checkerboard_bonds.cu`` and declare
-    its two C entries."""
-    lib = ctypes.CDLL(str(path))
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.tsu_bond_halfsweep.argtypes = [p, p, p, p, p, p, p, i, i, f, p, p, i, i, i, i, u, u, p]
-    lib.tsu_bond_halfsweep.restype = i
-    lib.tsu_bond_halfsweep_batched.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p,
-                                               i, i, i, i, i, p]
-    lib.tsu_bond_halfsweep_batched.restype = i
-    return lib
+def call(entry, device, *args, stream=None) -> None:
+    """Run the C entry ``entry`` (an attribute of a :func:`library`) for CUDA
+    ``device`` (a torch.device, its name or its index) under its device
+    guard. Tensors among ``args`` pass as their data pointers and None as
+    NULL. An entry whose last argument is a :class:`Stream` gets ``stream``
+    there, a ``cuda_stream`` handle a loop looked up once, or else the
+    device's current stream. Raises RuntimeError naming the entry and the
+    CUDA error on a nonzero return."""
+    args = [a if type(a) in _PLAIN or not isinstance(a, torch.Tensor) else a.data_ptr()
+            for a in args]
+    index = device if isinstance(device, int) else cuda_index(device)
+    # A launch's host time matters on the host-bound paths: the guard of an
+    # index costs a fraction of the guard of a torch.device, and the current
+    # stream's raw handle, which torch's own generated code reads, a fraction
+    # of torch.cuda.current_stream(), which builds a Stream object a call.
+    with torch.cuda.device(index):
+        if entry.argtypes[-1] is Stream:
+            args.append(torch._C._cuda_getCurrentRawStream(index) if stream is None else stream)
+        err = entry(*args)
+    if err:
+        raise RuntimeError(f"{entry.__name__} failed with CUDA error {err}")

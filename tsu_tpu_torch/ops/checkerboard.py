@@ -1,8 +1,9 @@
 """Checkerboard (red/black) Gibbs sweeps for 2-D Ising lattices, plain PyTorch.
 
 Counterpart of ``tsu_tpu/ops/checkerboard.py``: the compact layout, the
-neighbour sums that every lattice kernel and its plain version share, and the
-plain heat-bath path with an exact sigmoid and uniforms from a
+neighbour sums and the 9-entry threshold tables (:func:`sigmoid_table`,
+:func:`sigmoid_table16`) that the lattice kernels and their plain versions
+share, and the plain heat-bath path with an exact sigmoid and uniforms from a
 ``torch.Generator``.
 
 Layout: for row i, red plane column j2 holds lattice column 2*j2 + (i % 2);
@@ -15,6 +16,25 @@ open boundary is a zero halo in compact index space and a periodic one a wrap.
 from __future__ import annotations
 
 import torch
+
+
+def _table(J: float, field: float, temperature, scale: float) -> torch.Tensor:
+    k = torch.arange(-4, 5, dtype=torch.float32)
+    T = torch.as_tensor(temperature, dtype=torch.float32).cpu()[..., None]
+    p = torch.sigmoid(2.0 * (J * k + field) / T)
+    return torch.clamp(p * scale, 0, scale - 1).to(torch.int32)
+
+
+def sigmoid_table(J: float, field: float, temperature) -> torch.Tensor:
+    """(..., 9) int32 24-bit thresholds for neighbour sums -4..4, one row per
+    temperature; computed on the CPU in float32."""
+    return _table(J, field, temperature, 16777216.0)
+
+
+def sigmoid_table16(J: float, field: float, temperature) -> torch.Tensor:
+    """(..., 9) int32 16-bit thresholds matching the 16-bit uniforms of the
+    fused sweep; computed on the CPU in float32."""
+    return _table(J, field, temperature, 65536.0)
 
 
 def _row_is_even(R: int, device) -> torch.Tensor:

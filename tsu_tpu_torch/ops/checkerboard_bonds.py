@@ -29,9 +29,13 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch import profiling
-from tsu_tpu_torch.ops.checkerboard import merge_checkerboard, split_checkerboard, wrap_halos
-from tsu_tpu_torch.ops.checkerboard_fused import sigmoid_table
-from tsu_tpu_torch.rng import SEED_STRIDE, to_int32
+from tsu_tpu_torch.ops.checkerboard import (
+    merge_checkerboard,
+    sigmoid_table,
+    split_checkerboard,
+    wrap_halos,
+)
+from tsu_tpu_torch.rng import SEED_STRIDE, bond_key, to_int32
 
 
 def _color_site_cols(R: int, C: int, color: int, device):
@@ -238,11 +242,7 @@ def anneal_lattice_bonds(seed: int, lattice0: torch.Tensor, Jh, Jv, *, T_initial
     from the stream id seed + i * SEED_STRIDE, its half-sweeps keyed
     (fold_seed(id, colour), sweep within the chunk).
     """
-    from tsu_tpu_torch.ops.checkerboard_bonds_kernel import (
-        bond_kernel_weights,
-        bond_key,
-        bond_sweeps,
-    )
+    from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_kernel_weights, bond_sweeps
 
     device = lattice0.device
     Jh = torch.as_tensor(Jh, dtype=torch.float32, device=device)

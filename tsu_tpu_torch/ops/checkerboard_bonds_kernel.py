@@ -20,7 +20,7 @@ two modes:
 - discrete: ``weights`` is that colour's uint8 code plane from
   :func:`~tsu_tpu_torch.ops.checkerboard_bonds.pack_bond_codes` and
   ``table`` the 9 int32 thresholds of
-  :func:`~tsu_tpu_torch.ops.checkerboard_fused.sigmoid_table`; the site is
+  :func:`~tsu_tpu_torch.ops.checkerboard.sigmoid_table`; the site is
   +1 if u24 < table[local + 4]. Kernel and plain version agree bit for bit.
 
 Uniforms are 24 bits: the top 24 bits of the site's Philox4x32-10 word at
@@ -36,23 +36,20 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch import profiling
-from tsu_tpu_torch.ops._build import bond_sweep_library
-from tsu_tpu_torch.ops.checkerboard import wrap_halos
+from tsu_tpu_torch.ops._build import (
+    CONTINUOUS_BAND,
+    MAX_BATCH,
+    MAX_ROWS,
+    PLANE_DTYPES,
+    call,
+    check_on,
+    library,
+)
+from tsu_tpu_torch.ops.checkerboard import sigmoid_table, wrap_halos
 from tsu_tpu_torch.ops.checkerboard_bonds import _neighbor_values, local_field, pack_bond_codes
-from tsu_tpu_torch.ops.checkerboard_fused import MAX_BATCH, _check_on, sigmoid_table
-from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words, sweep_keys
+from tsu_tpu_torch.rng import MASK32, bond_key, philox_words, sweep_keys
 
-CONTINUOUS_BAND = 1e-6   # |u - p| within which implementations may disagree
-MAX_ROWS = 8 * 65535     # K3's grid (8 rows per block, gridDim.y <= 65535); the bond
-                         # kernels' grid (4 strips of >= 8 rows per block) holds 4x more
-_DTYPES = (torch.float32, torch.bfloat16)
 _U24_SCALE = 1.0 / 16777216.0
-
-
-def bond_key(seed: int, color: int, sweep: int):
-    """Philox key (fold_seed(seed, colour), sweep) of the single-lattice
-    kernel's half-sweep, as two uint32 ints; colour 0 is red, 1 black."""
-    return fold_seed(seed, color) & MASK32, sweep & MASK32
 
 
 def bond_sweep_keys(seeds, n_sweeps: int) -> torch.Tensor:
@@ -71,7 +68,7 @@ def _check(other, weights, uniforms, *, batch=None, temps=None, table=None, keys
     otherwise in the batched form; keys (B, 2) int32; uniforms like other,
     int32."""
     nd = 2 if batch is None else 3
-    if other.dim() != nd or other.dtype not in _DTYPES:
+    if other.dim() != nd or other.dtype not in PLANE_DTYPES:
         raise ValueError(f"the other plane must be {nd}-D float32 or bfloat16, got "
                          f"{tuple(other.shape)} {other.dtype}")
     *lead, R, C2 = other.shape
@@ -82,7 +79,7 @@ def _check(other, weights, uniforms, *, batch=None, temps=None, table=None, keys
     planes = (weights,) if isinstance(weights, torch.Tensor) else tuple(weights)
     packed = len(planes) == 1
     if packed and planes[0].dtype != torch.uint8 or not packed and (
-            len(planes) != 5 or planes[0].dtype not in _DTYPES
+            len(planes) != 5 or planes[0].dtype not in PLANE_DTYPES
             or any(w.dtype != planes[0].dtype for w in planes)):
         raise ValueError("weights must be five float32 or bfloat16 planes of one dtype, "
                          "or one uint8 code plane")
@@ -161,7 +158,7 @@ def bond_halfsweep(other, weights, *, update_red: bool, key=(0, 0), periodic: bo
     ``other``: (R, C2) float32 or bfloat16 plane of the other colour, R
     even. ``weights``/``temperature`` or ``weights``/``table``: the mode, as
     the module docstring says. ``key``: the Philox key (k0, k1) as ints
-    (:func:`bond_key`); ``uniforms``: optional (R, C2) int32 replacing it. A
+    (:func:`~tsu_tpu_torch.rng.bond_key`); ``uniforms``: optional (R, C2) int32 replacing it. A
     CUDA tensor launches the kernel, and ``bond_halfsweep.launches`` grows
     by one; a CPU tensor runs :func:`bond_halfsweep_reference`.
     """
@@ -172,22 +169,14 @@ def bond_halfsweep(other, weights, *, update_red: bool, key=(0, 0), periodic: bo
     if other.device.type != "cuda":
         raise ValueError(f"bond_halfsweep runs on cpu or cuda tensors, got {other.device}")
     planes = _check(other, weights, uniforms, table=table)
-    _check_on(other.device, table=table, uniforms=uniforms,
+    check_on(other.device, table=table, uniforms=uniforms,
               **{f"weights[{i}]": w for i, w in enumerate(planes)})
     wkind = 2 if table is not None else int(planes[0].dtype == torch.bfloat16)
-    ptrs = [w.data_ptr() for w in planes] + [None] * (5 - len(planes))
-    R, C2 = other.shape
     out = torch.empty_like(other)
-    with torch.cuda.device(other.device):
-        err = bond_sweep_library().tsu_bond_halfsweep(
-            other.data_ptr(), out.data_ptr(), *ptrs, wkind,
-            int(other.dtype == torch.bfloat16), 1.0 if temperature is None else float(temperature),
-            None if table is None else table.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(), R, C2, int(update_red),
-            int(periodic), key[0] & MASK32, key[1] & MASK32,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"bond half-sweep kernel launch failed with CUDA error {err}")
+    call(library("checkerboard_bonds").tsu_bond_halfsweep, other.device, other, out, *planes,
+         *[None] * (5 - len(planes)), wkind, int(other.dtype == torch.bfloat16),
+         1.0 if temperature is None else float(temperature), table, uniforms, *other.shape,
+         int(update_red), int(periodic), key[0] & MASK32, key[1] & MASK32)
     bond_halfsweep.launches += 1
     return out
 
@@ -231,22 +220,13 @@ def bond_halfsweep_batched(others, weights, keys, *, update_red: bool, periodic:
         raise ValueError(f"bond_halfsweep_batched runs on cpu or cuda tensors, got {others.device}")
     planes = _check(others, weights, uniforms, batch=True, temps=temperatures, table=tables,
                     keys=keys)
-    _check_on(others.device, temperatures=temperatures, tables=tables, keys=keys,
+    check_on(others.device, temperatures=temperatures, tables=tables, keys=keys,
               uniforms=uniforms, **{f"weights[{i}]": w for i, w in enumerate(planes)})
     wkind = 2 if tables is not None else int(planes[0].dtype == torch.bfloat16)
-    ptrs = [w.data_ptr() for w in planes] + [None] * (5 - len(planes))
-    B, R, C2 = others.shape
     out = torch.empty_like(others)
-    with torch.cuda.device(others.device):
-        err = bond_sweep_library().tsu_bond_halfsweep_batched(
-            others.data_ptr(), out.data_ptr(), *ptrs, wkind,
-            int(others.dtype == torch.bfloat16),
-            None if temperatures is None else temperatures.data_ptr(),
-            None if tables is None else tables.data_ptr(), keys.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(), B, R, C2, int(update_red),
-            int(periodic), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"batched bond half-sweep kernel launch failed with CUDA error {err}")
+    call(library("checkerboard_bonds").tsu_bond_halfsweep_batched, others.device, others, out,
+         *planes, *[None] * (5 - len(planes)), wkind, int(others.dtype == torch.bfloat16),
+         temperatures, tables, keys, uniforms, *others.shape, int(update_red), int(periodic))
     bond_halfsweep_batched.launches += 1
     return out
 

@@ -22,31 +22,21 @@ import numpy as np
 import torch
 
 from tsu_tpu_torch import profiling
-from tsu_tpu_torch.ops._build import fused_sweep_library
-from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half, neighbor_sum_half_halo
+from tsu_tpu_torch.ops._build import (
+    MAX_BATCH,
+    PLANE_DTYPES,
+    call,
+    check_on,
+    cuda_index,
+    library,
+)
+from tsu_tpu_torch.ops.checkerboard import (  # noqa: F401 (sigmoid_table: the JAX module's name)
+    neighbor_sum_half,
+    neighbor_sum_half_halo,
+    sigmoid_table,
+    sigmoid_table16,
+)
 from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words, sweep_keys
-
-_DTYPES = (torch.float32, torch.bfloat16)
-MAX_BATCH = 65535   # lattices per batched launch: the grid's z extent
-
-
-def _table(J: float, field: float, temperature, scale: float) -> torch.Tensor:
-    k = torch.arange(-4, 5, dtype=torch.float32)
-    T = torch.as_tensor(temperature, dtype=torch.float32).cpu()[..., None]
-    p = torch.sigmoid(2.0 * (J * k + field) / T)
-    return torch.clamp(p * scale, 0, scale - 1).to(torch.int32)
-
-
-def sigmoid_table(J: float, field: float, temperature) -> torch.Tensor:
-    """(..., 9) int32 24-bit thresholds for neighbour sums -4..4, one row per
-    temperature; computed on the CPU in float32."""
-    return _table(J, field, temperature, 16777216.0)
-
-
-def sigmoid_table16(J: float, field: float, temperature) -> torch.Tensor:
-    """(..., 9) int32 16-bit thresholds matching the 16-bit uniforms of the
-    fused sweep; computed on the CPU in float32."""
-    return _table(J, field, temperature, 65536.0)
 
 
 def _check(black: torch.Tensor, table: torch.Tensor, uniforms, keys=None):
@@ -54,7 +44,7 @@ def _check(black: torch.Tensor, table: torch.Tensor, uniforms, keys=None):
     None; black (R, C2), table (9,), uniforms (2, R, C2)) or the batched one
     (black (B, R, C2), table (B, 9), keys (B, 2), uniforms (B, 2, R, C2))."""
     nd = 2 if keys is None else 3
-    if black.dim() != nd or black.dtype not in _DTYPES:
+    if black.dim() != nd or black.dtype not in PLANE_DTYPES:
         raise ValueError(f"black must be {nd}-D float32 or bfloat16 planes, got "
                          f"{tuple(black.shape)} {black.dtype}")
     *batch, R, C2 = black.shape
@@ -72,12 +62,6 @@ def _check(black: torch.Tensor, table: torch.Tensor, uniforms, keys=None):
                                  or uniforms.dtype != torch.int32):
         raise ValueError(f"uniforms must be {(*batch, 2, R, C2)} int32, got "
                          f"{tuple(uniforms.shape)} {uniforms.dtype}")
-
-
-def _check_on(device, **tensors):
-    for name, t in tensors.items():
-        if t is not None and (t.device != device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous on {device}")
 
 
 def _heatbath(nbr: torch.Tensor, u: torch.Tensor, table: torch.Tensor):
@@ -199,44 +183,23 @@ def fused_sweep(black: torch.Tensor, table: torch.Tensor, *, seed: int = 0,
     if black.device.type != "cuda":
         raise ValueError(f"fused_sweep runs on cpu or cuda tensors, got {black.device}")
     _check(black, table, uniforms)
-    _check_on(black.device, black=black, table=table, uniforms=uniforms)
+    check_on(black.device, black=black, table=table, uniforms=uniforms)
     shard = up2 is not None or shard_info is not None
     if shard:
         _check_shard(black, uniforms, up2, down2, shard_info, uniforms_halo)
         u_top, u_bot = (None, None) if uniforms_halo is None else uniforms_halo
-        _check_on(black.device, up2=up2, down2=down2, u_top=u_top, u_bot=u_bot)
+        check_on(black.device, up2=up2, down2=down2, u_top=u_top, u_bot=u_bot)
 
-    lib = fused_sweep_library()
+    lib = library("checkerboard_fused")
     k0, k1 = fold_seed(seed) & MASK32, sweep & MASK32
-    stream = torch.cuda.current_stream(black.device).cuda_stream
-    u = None if uniforms is None else uniforms.data_ptr()
-    with torch.cuda.device(black.device):
-        if not shard:
-            return _launch(lib.tsu_fused_sweep, black, table.data_ptr(), u, periodic, k0, k1,
-                           stream)
-        R, C2 = black.shape
-        red_out, black_out = torch.empty_like(black), torch.empty_like(black)
-        err = lib.tsu_fused_sweep_shard(
-            black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(), table.data_ptr(),
-            u, up2.data_ptr(), down2.data_ptr(),
-            None if u_top is None else u_top.data_ptr(),
-            None if u_bot is None else u_bot.data_ptr(), R, C2,
-            *(int(v) for v in shard_info), int(periodic), k0, k1,
-            int(black.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(f"fused sweep kernel launch failed with CUDA error {err}")
-    fused_sweep.launches += 1
-    return red_out, black_out
-
-
-def _launch(launch, black, table_ptr, u_ptr, periodic, k0, k1, stream):
-    """One K1 launch through the library entry ``launch`` on a checked CUDA
-    plane, under its device; returns the new (red, black) planes."""
     red_out, black_out = torch.empty_like(black), torch.empty_like(black)
-    err = launch(black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(), table_ptr, u_ptr,
-                 *black.shape, int(periodic), k0, k1, int(black.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(f"fused sweep kernel launch failed with CUDA error {err}")
+    if shard:
+        call(lib.tsu_fused_sweep_shard, black.device, black, red_out, black_out, table, uniforms,
+             up2, down2, u_top, u_bot, *black.shape, *(int(v) for v in shard_info),
+             int(periodic), k0, k1, int(black.dtype == torch.bfloat16))
+    else:
+        call(lib.tsu_fused_sweep, black.device, black, red_out, black_out, table, uniforms,
+             *black.shape, int(periodic), k0, k1, int(black.dtype == torch.bfloat16))
     fused_sweep.launches += 1
     return red_out, black_out
 
@@ -253,9 +216,9 @@ def fused_sweeps(seed: int, red: torch.Tensor, black: torch.Tensor,
     ``temperature``: a scalar, or an (n_sweeps,) schedule (sweep k runs at
     temperature[k]). ``uniforms``: optional (n_sweeps, 2, R, C2) int32 in
     [0, 2^16). Sweep k draws from the Philox stream (fold_seed(seed), k).
-    On the card the checks, the library, the stream, the key and the table
-    and uniform rows are set up once, so a sweep costs one kernel call and
-    its two output planes; ``fused_sweep.launches`` grows by one per sweep.
+    On the card the checks, the library, the stream, the key, the table and
+    uniform rows and the output planes are set up once, so a sweep costs one
+    kernel call; ``fused_sweep.launches`` grows by one per sweep.
     """
     with profiling.annotate("lattice.sweeps", black.device):
         temps = torch.as_tensor(temperature, dtype=torch.float32).cpu().reshape(-1)
@@ -275,17 +238,23 @@ def fused_sweeps(seed: int, red: torch.Tensor, black: torch.Tensor,
                     uniforms=None if uniforms is None else uniforms[k])
             return red, black
         _check(black, tables[0], None if uniforms is None else uniforms[0])
-        _check_on(black.device, black=black)
-        launch = fused_sweep_library().tsu_fused_sweep
+        check_on(black.device, black=black)
+        entry = library("checkerboard_fused").tsu_fused_sweep
+        index = cuda_index(black.device)
         k0 = fold_seed(seed) & MASK32
         stream = torch.cuda.current_stream(black.device).cuda_stream
         table_step = tables.stride(0) * tables.element_size()
         u_step = 0 if uniforms is None else uniforms.stride(0) * uniforms.element_size()
-        with torch.cuda.device(black.device):
-            for k in range(n_sweeps):
-                red, black = _launch(launch, black, tables.data_ptr() + k * table_step,
-                                     None if uniforms is None else uniforms.data_ptr() + k * u_step,
-                                     periodic, k0, k & MASK32, stream)
+        # Red is never read, so one plane takes every sweep's red; black
+        # takes turns between two, a sweep reading one and writing the other.
+        red, outs = torch.empty_like(black), (torch.empty_like(black), torch.empty_like(black))
+        fixed, bf16 = (*black.shape, int(periodic), k0), int(black.dtype == torch.bfloat16)
+        for k in range(n_sweeps):
+            call(entry, index, black, red, outs[k % 2], tables.data_ptr() + k * table_step,
+                 None if uniforms is None else uniforms.data_ptr() + k * u_step, *fixed,
+                 k & MASK32, bf16, stream=stream)
+            black = outs[k % 2]
+            fused_sweep.launches += 1
         return red, black
 
 
@@ -328,21 +297,12 @@ def fused_sweep_batched(blacks: torch.Tensor, tables: torch.Tensor,
     if blacks.device.type != "cuda":
         raise ValueError(f"fused_sweep_batched runs on cpu or cuda tensors, got {blacks.device}")
     _check(blacks, tables, uniforms, keys)
-    _check_on(blacks.device, blacks=blacks, tables=tables, keys=keys, uniforms=uniforms)
+    check_on(blacks.device, blacks=blacks, tables=tables, keys=keys, uniforms=uniforms)
 
-    lib = fused_sweep_library()
-    B, R, C2 = blacks.shape
-    reds_out = torch.empty_like(blacks)
-    blacks_out = torch.empty_like(blacks)
-    with torch.cuda.device(blacks.device):
-        err = lib.tsu_fused_sweep_batched(
-            blacks.data_ptr(), reds_out.data_ptr(), blacks_out.data_ptr(),
-            tables.data_ptr(), keys.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(),
-            B, R, C2, int(periodic), int(blacks.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"batched fused sweep kernel launch failed with CUDA error {err}")
+    reds_out, blacks_out = torch.empty_like(blacks), torch.empty_like(blacks)
+    call(library("checkerboard_fused").tsu_fused_sweep_batched, blacks.device, blacks, reds_out,
+         blacks_out, tables, keys, uniforms, *blacks.shape, int(periodic),
+         int(blacks.dtype == torch.bfloat16))
     fused_sweep_batched.launches += 1
     return reds_out, blacks_out
 

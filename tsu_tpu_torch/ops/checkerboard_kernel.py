@@ -21,7 +21,7 @@ agree (:func:`halfsweep_band` marks those sites).
 Uniforms are 24 bits: the top 24 bits of the site's Philox4x32-10 word at
 counter (global row, global col // 4) under the launch's key, or injected
 (R, C/2) int32 in [0, 2^24). A sweep keys its half-sweep of colour c as
-(fold_seed(seed, c), sweep) (:func:`~tsu_tpu_torch.ops.checkerboard_bonds_kernel.bond_key`).
+(fold_seed(seed, c), sweep) (:func:`~tsu_tpu_torch.rng.bond_key`).
 The TPU kernel's row blocks and its 8-row and 128-lane halo tiles are TPU
 tiling and have no counterpart.
 """
@@ -30,17 +30,21 @@ from __future__ import annotations
 
 import torch
 
-from tsu_tpu_torch.ops._build import halfsweep_library
+from tsu_tpu_torch.ops._build import (
+    CONTINUOUS_BAND,
+    MAX_ROWS,
+    PLANE_DTYPES,
+    call,
+    check_on,
+    library,
+)
 from tsu_tpu_torch.ops.checkerboard import (
     neighbor_sum_half_halo,
     neighbor_sum_half_halo2d,
     wrap_halos,
 )
-from tsu_tpu_torch.ops.checkerboard_bonds_kernel import CONTINUOUS_BAND, MAX_ROWS, bond_key
-from tsu_tpu_torch.ops.checkerboard_fused import _check_on
-from tsu_tpu_torch.rng import MASK32, philox_words
+from tsu_tpu_torch.rng import MASK32, bond_key, philox_words
 
-_DTYPES = (torch.float32, torch.bfloat16)
 _U24_SCALE = 1.0 / 16777216.0
 
 __all__ = ["CONTINUOUS_BAND", "checkerboard_sweeps_planes_kernel", "halfsweep",
@@ -52,7 +56,7 @@ def _check(other, up_row, down_row, left_col, right_col, uniforms, row0: int, co
     bfloat16 with R even; halo rows C2 values and column halos R values of
     other's dtype; uniforms (R, C2) int32; offsets >= 0, the row offset
     even."""
-    if other.dim() != 2 or other.dtype not in _DTYPES:
+    if other.dim() != 2 or other.dtype not in PLANE_DTYPES:
         raise ValueError(f"the other plane must be 2-D float32 or bfloat16, got "
                          f"{tuple(other.shape)} {other.dtype}")
     R, C2 = other.shape
@@ -87,7 +91,7 @@ def _kernel_operands(other, up_row, down_row, left_col, right_col, uniforms) -> 
     """Raise unless every operand lies on ``other``'s device, contiguous but
     for the column halos, which may be strided columns; returns the column
     halos' strides (0 without them)."""
-    _check_on(other.device, other=other, up_row=up_row, down_row=down_row, uniforms=uniforms)
+    check_on(other.device, other=other, up_row=up_row, down_row=down_row, uniforms=uniforms)
     strides = []
     for name, col in (("left_col", left_col), ("right_col", right_col)):
         if col is None:
@@ -127,10 +131,6 @@ def _probability(other, up_row, down_row, left_col, right_col, update_red, perio
     # true division on every device.
     T = torch.full((), float(temperature), dtype=torch.float32, device=other.device)
     return torch.sigmoid(2.0 * (J * nbr + field) / T)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _u24(key, R: int, C2: int, row0: int, col0: int, device) -> torch.Tensor:
@@ -184,15 +184,10 @@ def halfsweep(other, up_row, down_row, *, update_red: bool, temperature, J: floa
                                                  uniforms)
     R, C2 = other.shape
     out = torch.empty_like(other)
-    with torch.cuda.device(other.device):
-        err = halfsweep_library().tsu_halfsweep(
-            other.data_ptr(), out.data_ptr(), up_row.data_ptr(), down_row.data_ptr(),
-            _ptr(left_col), _ptr(right_col), left_stride, right_stride, _ptr(uniforms), R, C2,
-            int(update_red), int(periodic), float(J), float(field), float(temperature), row0,
-            col0, key[0] & MASK32, key[1] & MASK32, int(other.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"half-sweep kernel launch failed with CUDA error {err}")
+    call(library("checkerboard_halfsweep").tsu_halfsweep, other.device, other, out, up_row,
+         down_row, left_col, right_col, left_stride, right_stride, uniforms, R, C2,
+         int(update_red), int(periodic), float(J), float(field), float(temperature), row0, col0,
+         key[0] & MASK32, key[1] & MASK32, int(other.dtype == torch.bfloat16))
     halfsweep.launches += 1
     return out
 

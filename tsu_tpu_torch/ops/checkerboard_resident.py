@@ -43,16 +43,15 @@ from dataclasses import dataclass
 import torch
 
 from tsu_tpu_torch.config import ConfigurationError
-from tsu_tpu_torch.ops._build import resident_sweep_library
-from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half
-from tsu_tpu_torch.ops.checkerboard_fused import _DTYPES, _check_on, sigmoid_table
+from tsu_tpu_torch.ops._build import PLANE_DTYPES, call, check_on, cuda_index, library
+from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half, sigmoid_table
 from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words
 
 
 def _check(red, black, tables, n_sweeps, uniforms):
     """Raise unless the operands fit: tables (9,) for one table (K6) or
     (n_sweeps, 9) for one per sweep (K7)."""
-    if red.dim() != 2 or red.dtype not in _DTYPES or black.shape != red.shape \
+    if red.dim() != 2 or red.dtype not in PLANE_DTYPES or black.shape != red.shape \
             or black.dtype != red.dtype:
         raise ValueError(f"red and black must be (R, C2) planes of one dtype, float32 or "
                          f"bfloat16, got {tuple(red.shape)} {red.dtype} and "
@@ -160,26 +159,20 @@ def tile_bounds(plan: ResidentPlan, R: int, C2: int) -> list:
 
 
 @functools.cache
-def _card_limits(device_index: int) -> tuple:
+def _card_limits(index: int) -> tuple:
     sms, optin, coop = (ctypes.c_int(0) for _ in range(3))
-    with torch.cuda.device(device_index):
-        err = resident_sweep_library().tsu_resident_limits(
-            ctypes.byref(sms), ctypes.byref(optin), ctypes.byref(coop))
-    if err:
-        raise RuntimeError(f"resident kernel device query failed with CUDA error {err}")
+    call(library("checkerboard_resident").tsu_resident_limits, index, ctypes.byref(sms),
+         ctypes.byref(optin), ctypes.byref(coop))
     if not coop.value:
         raise ConfigurationError("the resident kernel needs a card that takes cooperative "
                                  "launches")
     return sms.value, optin.value
 
 
-def _blocks_per_sm(device_index: int, smem_bytes: int, bf16: bool) -> int:
+def _blocks_per_sm(index: int, smem_bytes: int, bf16: bool) -> int:
     per_sm = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = resident_sweep_library().tsu_resident_occupancy(smem_bytes, int(bf16),
-                                                              ctypes.byref(per_sm))
-    if err:
-        raise RuntimeError(f"resident kernel occupancy query failed with CUDA error {err}")
+    call(library("checkerboard_resident").tsu_resident_occupancy, index, smem_bytes, int(bf16),
+         ctypes.byref(per_sm))
     return per_sm.value
 
 
@@ -207,14 +200,13 @@ def _launch(seed, red, black, tables, n_sweeps, periodic, uniforms):
     """Run n_sweeps sweeps from (red, black) in one cooperative launch;
     returns new (red, black)."""
     _check(red, black, tables, n_sweeps, uniforms)
-    _check_on(black.device, tables=tables, uniforms=uniforms)
+    check_on(black.device, tables=tables, uniforms=uniforms)
     if red.device != black.device:
         raise ValueError(f"red lies on {red.device}, black on {black.device}")
     R, C2 = red.shape
     if n_sweeps == 0:
         return tuple(torch.clone(x, memory_format=torch.contiguous_format) for x in (red, black))
-    dev = black.device.index if black.device.index is not None else torch.cuda.current_device()
-    plan = resident_grid(R, C2, red.dtype, dev)
+    plan = resident_grid(R, C2, red.dtype, cuda_index(black.device))
     # The kernel reads black once, before its first grid barrier, and writes
     # both planes after its last: in place on a copy. Red is recomputed
     # before it is read, so its copy is never filled.
@@ -224,15 +216,10 @@ def _launch(seed, red, black, tables, n_sweeps, periodic, uniforms):
     # half-steps published.
     img = torch.empty(2 * R * -(-C2 // WORD_BITS), dtype=torch.int32, device=black.device)
     flags = torch.zeros(plan.blocks, dtype=torch.int32, device=black.device)
-    with torch.cuda.device(black.device):
-        err = resident_sweep_library().tsu_resident_run(
-            red.data_ptr(), black.data_ptr(), tables.data_ptr(), 0 if tables.dim() == 1 else 9,
-            None if uniforms is None else uniforms.data_ptr(), n_sweeps, R, C2, int(periodic),
-            fold_seed(seed) & MASK32, int(red.dtype == torch.bfloat16), plan.bands, plan.ranges,
-            plan.rows, plan.stride, img.data_ptr(), flags.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"resident sweep kernel launch failed with CUDA error {err}")
+    call(library("checkerboard_resident").tsu_resident_run, black.device, red, black, tables,
+         0 if tables.dim() == 1 else 9, uniforms, n_sweeps, R, C2, int(periodic),
+         fold_seed(seed) & MASK32, int(red.dtype == torch.bfloat16), plan.bands, plan.ranges,
+         plan.rows, plan.stride, img, flags)
     return red, black
 
 

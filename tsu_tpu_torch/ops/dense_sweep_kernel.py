@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from tsu_tpu_torch.ops._build import dense_colour_sweep_library
+from tsu_tpu_torch.ops._build import call, cuda_index, library
 
 SMEM_OPTIN = 232_448        # dynamic shared memory a block may opt in to on an H100
 CHUNKS = (1, 2)             # 16-byte column pieces a thread that the kernel is built for
@@ -72,11 +72,8 @@ def geometry(n: int, widest: int) -> Optional[Geometry]:
 @functools.cache
 def _blocks_per_sm(index: int, geom: Geometry) -> int:
     per_sm = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        err = dense_colour_sweep_library().tsu_dense_colour_sweep_blocks_per_sm(
-            geom.threads, geom.chunks, geom.smem, ctypes.byref(per_sm))
-    if err:
-        raise RuntimeError(f"dense colour sweep occupancy query failed with CUDA error {err}")
+    call(library("dense_colour_sweep").tsu_dense_colour_sweep_blocks_per_sm, index,
+         geom.threads, geom.chunks, geom.smem, ctypes.byref(per_sm))
     return per_sm.value
 
 
@@ -89,8 +86,7 @@ def blocks_at_once(n: int, widest: int, device) -> int:
     geom = geometry(n, widest)
     if geom is None:
         return 0
-    device = torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = cuda_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return sms * _blocks_per_sm(index, geom)
 
@@ -142,14 +138,9 @@ def dense_colour_sweep(plan, states, u, T):
     geom = geometry(n, widest)
     if geom is None:
         raise ValueError(f"no K10 launch fits {n} sites with a colour of {widest}")
-    with torch.cuda.device(states.device):
-        err = dense_colour_sweep_library().tsu_dense_colour_sweep(
-            states.data_ptr(), u.data_ptr(), T.data_ptr(), J.data_ptr(), h.data_ptr(),
-            diag.data_ptr(), ends.data_ptr(), chains, n, J.shape[1], ends.numel(), widest,
-            geom.threads, geom.chunks, geom.smem,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"dense colour sweep kernel launch failed with CUDA error {err}")
+    call(library("dense_colour_sweep").tsu_dense_colour_sweep, states.device, states, u, T, J, h,
+         diag, ends, chains, n, J.shape[1], ends.numel(), widest, geom.threads, geom.chunks,
+         geom.smem)
     dense_colour_sweep.launches += 1
     return states
 

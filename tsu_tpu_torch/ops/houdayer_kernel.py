@@ -31,7 +31,7 @@ import functools
 import torch
 
 from tsu_tpu_torch import profiling
-from tsu_tpu_torch.ops._build import houdayer_cluster_library
+from tsu_tpu_torch.ops._build import call, cuda_index, library
 from tsu_tpu_torch.ops.checkerboard import wrap_halos
 
 GROWTH_CHECK = 16   # the plain version's growth steps between fixed-point tests
@@ -97,16 +97,11 @@ def houdayer_cluster_reference(u, r1, b1, r2, b2, periodic: bool, *,
             torch.where(m_red, -r2, r2), torch.where(m_black, -b2, b2)), steps
 
 
-def _card(device) -> int:
-    device = torch.device(device)
-    return device.index if device.index is not None else torch.cuda.current_device()
-
-
 def growth_steps(device) -> torch.Tensor:
     """The 0-d int64 counter on CUDA ``device`` to which, while tracing,
     every move of :func:`houdayer_cluster` there adds the growth steps of its
     slowest pair. Zero it with ``zero_()``; reading it waits for the card."""
-    index = _card(device)
+    index = cuda_index(device)
     if index not in _STEPS:
         _STEPS[index] = torch.zeros((), dtype=torch.int64, device=torch.device("cuda", index))
     return _STEPS[index]
@@ -116,10 +111,7 @@ def growth_steps(device) -> torch.Tensor:
 def _smem_limit(index: int) -> int:
     """Bytes of dynamic shared memory a K9 block may take on card ``index``."""
     got = ctypes.c_int()
-    with torch.cuda.device(index):
-        err = houdayer_cluster_library().tsu_houdayer_smem_limit(ctypes.byref(got))
-    if err:
-        raise RuntimeError(f"reading the card's shared-memory limit failed with CUDA error {err}")
+    call(library("houdayer_cluster").tsu_houdayer_smem_limit, index, ctypes.byref(got))
     return got.value
 
 
@@ -160,18 +152,13 @@ def houdayer_cluster_kernel(u, r1, b1, r2, b2, periodic: bool):
     B, R, C2 = r1.shape
     W = -(-C2 // 32)
     scratch = None
-    if 16 * R * W > _smem_limit(_card(r1.device)):
+    if 16 * R * W > _smem_limit(cuda_index(r1.device)):
         scratch = torch.empty((B, 4, R, W), dtype=torch.int32, device=r1.device)
     outs = [torch.empty_like(x) for x in planes]
     steps = torch.empty(B, dtype=torch.int32, device=r1.device)
-    with torch.cuda.device(r1.device):
-        err = houdayer_cluster_library().tsu_houdayer_cluster(
-            *(x.data_ptr() for x in planes), *(x.data_ptr() for x in outs), u.data_ptr(),
-            int(u.dtype == torch.float64), _DTYPES[r1.dtype], B, R, C2, int(periodic),
-            None if scratch is None else scratch.data_ptr(), steps.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"Houdayer cluster kernel launch failed with CUDA error {err}")
+    call(library("houdayer_cluster").tsu_houdayer_cluster, r1.device, *planes, *outs, u,
+         int(u.dtype == torch.float64), _DTYPES[r1.dtype], B, R, C2, int(periodic), scratch,
+         steps)
     houdayer_cluster_kernel.launches += 1
     return tuple(outs), steps
 

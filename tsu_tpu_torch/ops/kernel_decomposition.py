@@ -28,9 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from tsu_tpu_torch.ops._build import fused_sweep_library
+from tsu_tpu_torch.ops._build import PLANE_DTYPES, call, check_on, library
 from tsu_tpu_torch.ops.checkerboard import wrap_halos
-from tsu_tpu_torch.ops.checkerboard_fused import _DTYPES, _check_on
 from tsu_tpu_torch.rng import MASK32, fold_seed, philox_words
 
 MODES = {"prng_only": 1, "prng_grouped": 2, "nomath": 3}
@@ -39,7 +38,7 @@ MODES = {"prng_only": 1, "prng_grouped": 2, "nomath": 3}
 def _check(mode, black, uniforms):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    if black.dim() != 2 or black.dtype not in _DTYPES:
+    if black.dim() != 2 or black.dtype not in PLANE_DTYPES:
         raise ValueError(f"black must be an (R, C2) float32 or bfloat16 plane, got "
                          f"{tuple(black.shape)} {black.dtype}")
     R, C2 = black.shape
@@ -86,18 +85,11 @@ def decomposition_sweep(mode: str, black: torch.Tensor, *, seed: int = 0, sweep:
     if black.device.type != "cuda":
         raise ValueError(f"decomposition_sweep runs on cpu or cuda tensors, got {black.device}")
     _check(mode, black, uniforms)
-    _check_on(black.device, black=black, uniforms=uniforms)
-    R, C2 = black.shape
-    red_out = torch.empty_like(black)
-    black_out = torch.empty_like(black)
-    with torch.cuda.device(black.device):
-        err = fused_sweep_library().tsu_decomposition_sweep(
-            MODES[mode], black.data_ptr(), red_out.data_ptr(), black_out.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(), R, C2, int(periodic),
-            fold_seed(seed) & MASK32, sweep & MASK32, int(black.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"decomposition kernel ({mode}) launch failed with CUDA error {err}")
+    check_on(black.device, black=black, uniforms=uniforms)
+    red_out, black_out = torch.empty_like(black), torch.empty_like(black)
+    call(library("checkerboard_fused").tsu_decomposition_sweep, black.device, MODES[mode], black,
+         red_out, black_out, uniforms, *black.shape, int(periodic), fold_seed(seed) & MASK32,
+         sweep & MASK32, int(black.dtype == torch.bfloat16))
     decomposition_sweep.launches += 1
     return red_out, black_out
 

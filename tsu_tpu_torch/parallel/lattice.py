@@ -47,13 +47,12 @@ from tsu_tpu_torch.ops.checkerboard import (
     neighbor_sum_half_halo2d,
     split_checkerboard,
 )
-from tsu_tpu_torch.ops.checkerboard_bonds_kernel import bond_key
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweep, sigmoid_table16
 from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep
 from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.parallel.mesh import Mesh
-from tsu_tpu_torch.rng import as_generator
+from tsu_tpu_torch.rng import as_generator, bond_key
 from tsu_tpu_torch.checkpoint import checkpoint_exists, restore_state, save_state
 
 

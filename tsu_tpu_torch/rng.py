@@ -11,7 +11,8 @@ depends only on the site's global coordinates, so any thread block that
 redraws a halo site draws what the site's owner drew. ``philox_words`` is the
 plain PyTorch version of the generator in
 ``tsu_tpu_torch/csrc/checkerboard_fused.cu`` and matches it bit for bit;
-``sweep_keys`` builds the per-lattice keys of the batched kernel.
+``sweep_keys`` builds the per-lattice keys of the batched kernel and
+``bond_key`` the key of a single-lattice half-sweep.
 """
 
 from __future__ import annotations
@@ -113,6 +114,12 @@ def sweep_keys(seeds, sweeps) -> torch.Tensor:
     folded, sweeps = np.broadcast_arrays(folded, np.asarray(sweeps, np.int64))
     keys = np.stack([folded, (sweeps + 2**31) % 2**32 - 2**31], axis=-1)
     return torch.from_numpy(keys.astype(np.int32))
+
+
+def bond_key(seed: int, color: int, sweep: int):
+    """Philox key (fold_seed(seed, colour), sweep) of a single-lattice
+    half-sweep (K3, K4), as two uint32 ints; colour 0 is red, 1 black."""
+    return fold_seed(seed, color) & MASK32, sweep & MASK32
 
 
 def _mulhilo(m: int, a: torch.Tensor):

@@ -2,5 +2,5 @@
 ``python3 -m tsu_tpu_torch.tools.<name>``. Importing this package imports
 none of them."""
 
-__all__ = ["bench", "bodies", "bond_bodies", "halfsweep_bodies", "kernel_bench",
-           "kernel_decomposition", "ml_seed_spread", "profile_paths", "resident_bodies", "sass_count", "timing"]
+__all__ = ["bench", "bodies", "kernel_bench", "kernel_decomposition", "ml_seed_spread",
+           "profile_paths", "sass_count", "timing"]
