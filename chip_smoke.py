@@ -290,16 +290,25 @@ Phases, each of which raises on failure:
     and 64 and the MAX-CUT plan (the route rule's threshold and its waves
     of blocks, beside the blocks that the card runs at once); the plain
     loop's ms at the cell's shape; one call of the cell's entry, which must
-    launch K10 once a sweep.
+    launch K10 once a sweep;
+45. the planes' observables (K11, which replaces no TPU kernel): K11 == the
+    merge route (merge_checkerboard and lattice_energy_batch in float64 on
+    the CPU) bit for bit at 4096^2 bf16, periodic and open, on random planes
+    and on the antiferromagnetic checkerboard; its ms a sample (CUDA events
+    around 100 launches one by one and from a CUDA graph of 100, median of
+    3, the planes in L2 as after a sweep) beside the merge route's on the card, which it replaced in
+    IsingGrid.sample_observables, and its bound (the two planes read once
+    over 3.35 TB/s); one call of the ferromagnet cell's entry at 4096^2 with
+    20 samples, which must launch K11 once a sample.
 
 A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:", a
-"slice 9:", a "houdayer:" and a "dense fused:" JSON log line carry those
-phases' numbers.
+"slice 9:", a "houdayer:", a "dense fused:" and an "observables:" JSON log
+line carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
 card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
-and their CUDA counterparts, and K9 and K10, which replace none; K1, K2 and K9
+and their CUDA counterparts, and K9, K10 and K11, which replace none; K1, K2 and K9
 also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 their
@@ -418,6 +427,7 @@ from tsu_tpu_torch.ops.houdayer_kernel import (
 )
 from tsu_tpu_torch.ops import dense_sweep_kernel
 from tsu_tpu_torch.ops.dense_sweep_kernel import dense_colour_sweep
+from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_observables
 from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
     decomposition_sweep,
@@ -3873,6 +3883,77 @@ def phase_dense_fused(dev, name) -> dict:
     return out
 
 
+def k11_once(red, black, periodic):
+    """K11 on the planes into a fresh pair of outputs: (m, e) on the CPU."""
+    m = torch.empty(1, dtype=torch.float64, device=red.device)
+    e = torch.empty_like(m)
+    plane_observables(red, black, m, e, 0, observables_scratch(red.shape, red.device), J=1.0,
+                      periodic=periodic)
+    return m.cpu(), e.cpu()
+
+
+def merge_route(red, black, periodic):
+    """IsingGrid.sample_observables' merge route on the planes' device:
+    (m, e) of the merged lattice in float64."""
+    lattice = merge_checkerboard(red, black).float()
+    return (lattice.to(torch.float64).sum().reshape(1) / lattice.numel(),
+            lattice_energy_batch(lattice, J=1.0, field=0.0, periodic=periodic).reshape(1))
+
+
+def phase_observables(dev, name) -> dict:
+    """Phase 45: K11 == the merge route on the CPU at the ferromagnet
+    cell's shape, periodic and open, on random planes and the
+    antiferromagnetic checkerboard; its ms a sample (100 launches one by
+    one and from a CUDA graph, median of 3) beside the merge route's on the
+    card and its bound; one call of the cell's entry at 20 samples launches
+    it once a sample."""
+    gen = torch.Generator().manual_seed(45)
+    lat = torch.where(torch.rand(MAIN_SHAPE, generator=gen) < 0.5, 1.0, -1.0)
+    x, y = torch.meshgrid(torch.arange(MAIN_SHAPE[0]), torch.arange(MAIN_SHAPE[1]), indexing="ij")
+    for what, full in (("random", lat), ("checkerboard", torch.where((x + y) % 2 == 0, 1.0, -1.0))):
+        red, black = (p.to(torch.bfloat16).contiguous() for p in split_checkerboard(full))
+        for periodic in (True, False):
+            got = k11_once(red.to(dev), black.to(dev), periodic)
+            want = merge_route(red, black, periodic)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K11 != merge route ({what}, periodic={periodic}): "
+                                     f"{got} against {want}")
+    red, black = (p.to(torch.bfloat16).contiguous().to(dev) for p in split_checkerboard(lat))
+    m = torch.empty(100, dtype=torch.float64, device=dev)
+    e = torch.empty_like(m)
+    scratch = observables_scratch(red.shape, dev)
+
+    def k11(n):
+        for i in range(n):
+            plane_observables(red, black, m, e, i, scratch, J=1.0)
+
+    def merge(n):
+        for _ in range(n):
+            merge_route(red, black, True)
+
+    runs = {"card_ms": [], "graph_ms": [], "merge_route_ms": []}
+    k11(1)
+    merge(1)
+    for _ in range(3):
+        runs["card_ms"].append(time_sweeps(k11, 100))
+        runs["graph_ms"].append(graph_ms(k11, 100))
+        runs["merge_route_ms"].append(time_sweeps(merge, 20))
+    grid = IsingGrid(MAIN_SHAPE, periodic=True, seed=45, device=dev)
+    before = plane_observables.launches
+    grid.sample_observables(n_samples=20, temperature=2.269)
+    launched = plane_observables.launches - before
+    if launched != 20:
+        raise AssertionError(f"sample_observables(20) launched K11 {launched} times")
+    out = {**{k: float(np.median(v)) for k, v in runs.items()}, "runs_ms": runs,
+           "bound_ms": bound_ms(2 * 2 * red.numel()), "cell_call_launches": launched,
+           "shape": [MAIN_SHAPE[0], MAIN_SHAPE[1] // 2], "card": name}
+    log(f"phase 45: K11 at {MAIN_SHAPE} bf16 periodic, ms a sample (median of 3) one by one "
+        f"and from a CUDA graph of 100: {out['card_ms']:.6f}, {out['graph_ms']:.6f}; merge "
+        f"route on the card {out['merge_route_ms']:.6f}; bound "
+        f"{out['bound_ms']:.6f}, on {name}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -4054,6 +4135,11 @@ def main() -> int:
     log("phase 44: K10 timed beside the graph route; the SK cell's call launched it once a sweep")
     log("dense fused: " + json.dumps(dense_fused))
 
+    observables = phase_observables(dev, name)
+    log("phase 45: K11 == the merge route at 4096^2, timed beside it; the ferromagnet's call "
+        "launched it once a sample")
+    log("observables: " + json.dumps(observables))
+
     def slice9_launches(k):
         """The examples that launched kernel k, with their launches."""
         i = NAMES.index(k)
@@ -4190,6 +4276,12 @@ def main() -> int:
               graph_route_ms=dense_fused["shapes"]["sk cell 4096 x 64"]["graph_ms"],
               dependent_steps=DENSE_CELL[0],
               shapes=dense_fused["shapes"]),
+        # K11 replaces no TPU kernel; it is checked bit for bit (error 0); a
+        # sample reads the two planes once.
+        entry("plane_observables", "tsu_tpu_torch/csrc/plane_observables.cu", None,
+              observables["cell_call_launches"], 0.0, observables["card_ms"],
+              observables["merge_route_ms"], 2 * 2 * site, graph_ms=observables["graph_ms"],
+              runs_ms=observables["runs_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

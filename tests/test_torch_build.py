@@ -13,7 +13,7 @@ import torch
 from tsu_tpu_torch.ops import _build
 
 C_TYPES = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p, "int": ctypes.c_int,
-           "unsigned int": ctypes.c_uint, "float": ctypes.c_float,
+           "unsigned int": ctypes.c_uint, "float": ctypes.c_float, "double": ctypes.c_double,
            "long long": ctypes.c_longlong, "int*": ctypes.POINTER(ctypes.c_int)}
 
 

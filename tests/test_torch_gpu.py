@@ -2,8 +2,10 @@
 and of a shard, the bond half-sweep of one lattice and of a batch of
 replicas, the resident multi-sweep kernel at one table and over a schedule,
 the fused sweep's decomposition variants, the exact-sigmoid half-sweep,
-the Houdayer cluster move, the dense colour sweep) against their plain PyTorch versions, and the
-batched, spin-glass and sharded paths on the card against the same paths on the CPU.
+the Houdayer cluster move, the dense colour sweep, the observables of a
+lattice's planes) against their plain PyTorch versions, and the batched,
+spin-glass, sharded and observables paths on the card against the same paths
+on the CPU.
 
 Marked ``gpu``: without CUDA every test skips. On a machine with an NVIDIA
 Hopper card and nvcc, run ``python -m pytest -m gpu tests/test_torch_gpu.py``;
@@ -1508,6 +1510,140 @@ def test_bnn_classes_on_the_card(cuda):
     hb = b.fit(x, y, n_epochs=3, batch_size=16,
                mesh=make_mesh(chains=2, devices=[cuda] * 2))["loss_history"]
     np.testing.assert_allclose(hb, ha, rtol=1e-5)
+
+
+# -- the ferromagnet's observables from the planes (K11) ---------------------
+
+
+def _lattice_planes(kind, shape, dtype=torch.bfloat16, B=None, seed=0):
+    """Red and black planes of an (R, C) lattice (B of them when B is
+    given): random spins, all up, all down, or the antiferromagnetic
+    checkerboard (every red site up, every black one down)."""
+    R, C = shape
+    full = (R, C) if B is None else (B, R, C)
+    if kind == "random":
+        lat = torch.where(torch.rand(full, generator=torch.Generator().manual_seed(seed)) < 0.5,
+                          1.0, -1.0)
+    elif kind == "checkerboard":
+        x, y = torch.meshgrid(torch.arange(R), torch.arange(C), indexing="ij")
+        lat = torch.where((x + y) % 2 == 0, 1.0, -1.0).expand(full)
+    else:
+        lat = torch.full(full, 1.0 if kind == "up" else -1.0)
+    return [p.to(dtype).contiguous() for p in split_checkerboard(lat)]
+
+
+def _merge_route(red, black, J, field, periodic):
+    """The CPU route of ``IsingGrid.sample_observables``: the merged
+    lattice's float64 magnetization per spin and total energy."""
+    from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch, merge_checkerboard
+
+    lattice = merge_checkerboard(red.cpu(), black.cpu()).to(torch.float32)
+    n = lattice.shape[-1] * lattice.shape[-2]
+    return (lattice.to(torch.float64).sum((-2, -1)) / n,
+            lattice_energy_batch(lattice, J=J, field=field, periodic=periodic))
+
+
+def _k11(red, black, cuda, J=1.0, field=0.0, periodic=True, rows=1):
+    """K11 on the planes on the card, into row ``rows - 1`` of fresh
+    outputs; returns (m, e) of that row on the CPU."""
+    from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_observables
+
+    red, black = red.to(cuda), black.to(cuda)
+    B = red.shape[0] if red.dim() == 3 else 1
+    m = torch.full((rows, B), float("nan"), dtype=torch.float64, device=cuda)
+    e = torch.full_like(m, float("nan"))
+    plane_observables(red, black, m, e, rows - 1, observables_scratch(red.shape, cuda), J=J,
+                      field=field, periodic=periodic)
+    return m[-1].cpu().reshape(red.shape[:-2]), e[-1].cpu().reshape(red.shape[:-2])
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (6, 10), (64, 64), (1024, 4096), (4096, 4096)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "open"])
+@pytest.mark.parametrize("kind", ["random", "up", "down", "checkerboard"])
+def test_plane_observables_equal_the_merge_route_bit_for_bit(cuda, shape, periodic, kind):
+    """K11's float64 m and E equal the CPU route's (merge_checkerboard and
+    lattice_energy_batch) bit for bit, at the extreme sums too: all up and
+    all down (|m| = 1, E = -2N periodic) and the antiferromagnetic
+    checkerboard (E = +2N periodic)."""
+    red, black = _lattice_planes(kind, shape)
+    got, want = _k11(red, black, cuda, periodic=periodic), _merge_route(red, black, 1.0, 0.0,
+                                                                         periodic)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (got, want)
+    n = shape[0] * shape[1]
+    if periodic and kind == "checkerboard":
+        assert float(got[1]) == 2 * n and float(got[0]) == 0.0
+    if periodic and kind in ("up", "down"):
+        assert float(got[1]) == -2 * n and abs(float(got[0])) == 1.0
+
+
+@pytest.mark.parametrize("case", ["float32", "field", "batch", "unaligned", "grid-stride"])
+def test_plane_observables_other_operands(cuda, monkeypatch, case):
+    """K11 on float32 planes, with a non-integer coupling and a field, on a
+    batch of lattices written at row * B + b, on planes whose pointers are
+    not 16-byte aligned (its element-wise loads), and with fewer blocks
+    than a lattice's strips (every thread walks several): each == the
+    merge route bit for bit."""
+    from tsu_tpu_torch.ops import plane_observables as k11
+
+    J, field, periodic, B, shape = 1.0, 0.0, True, None, (64, 96)
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    if case == "field":
+        J, field, periodic = 0.7, 0.3, False
+    if case == "batch":
+        B = 3
+    if case == "grid-stride":
+        monkeypatch.setattr(k11, "MAX_BLOCKS", 2)
+        shape = (256, 512)
+    red, black = _lattice_planes("random", shape, dtype, B=B, seed=7)
+    if case == "unaligned":
+        buf = torch.empty(2 * red.numel() + 2, dtype=dtype)
+        red = buf[1:1 + red.numel()].view(red.shape).copy_(red)
+        black = buf[2 + red.numel():].view(black.shape).copy_(black)
+    got = _k11(red, black, cuda, J=J, field=field, periodic=periodic, rows=3)
+    want = _merge_route(red, black, J, field, periodic)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (got, want)
+
+
+def test_plane_observables_reuse_one_scratch_launch_after_launch(cuda):
+    """One scratch serves a chain of launches: each leaves its tickets at
+    zero, so sample i of 6 different lattices lands in row i, each equal
+    to its merge route."""
+    from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_observables
+
+    m = torch.empty(6, dtype=torch.float64, device=cuda)
+    e = torch.empty_like(m)
+    scratch = observables_scratch((512, 256), cuda)
+    planes = [_lattice_planes("random", (512, 512), seed=i) for i in range(6)]
+    for i, (red, black) in enumerate(planes):
+        plane_observables(red.to(cuda), black.to(cuda), m, e, i, scratch, J=1.0)
+    assert int(scratch[-1]) == 0
+    for i, (red, black) in enumerate(planes):
+        want = _merge_route(red, black, 1.0, 0.0, True)
+        assert float(m[i]) == float(want[0]) and float(e[i]) == float(want[1]), i
+
+
+def test_sample_observables_on_the_card_equal_the_cpu_and_count_k11(cuda):
+    """The card's IsingGrid.sample_observables takes K11 once a sample and
+    answers what the CPU answers from the same seed, bit for bit;
+    ``observables.fused_samples`` counts each sample K11 took."""
+    from tsu_tpu_torch.ops.plane_observables import plane_observables
+
+    def run(device):
+        grid = IsingGrid((64, 96), periodic=True, seed=11, device=device,
+                         config=IsingConfig(n_burnin=20, n_sweeps=3))
+        return grid.sample_observables(n_samples=7, temperature=2.269)
+
+    want = run("cpu")
+    before = plane_observables.launches
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = run(cuda)
+    assert profiling.counters()["observables.fused_samples"] == 7
+    assert plane_observables.launches == before + 7
+    for k in ("magnetization", "energy"):
+        assert got[k].dtype == want[k].dtype == np.float64
+        assert np.array_equal(got[k], want[k]), k
 
 
 def _syncs_of(call):

@@ -32,6 +32,7 @@ from tsu_tpu_torch.models.lattice_sampler import (
 )
 from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch, merge_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds, sample_lattice_bonds
+from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_observables
 from tsu_tpu_torch.parallel.lattice import sharded_lattice_sample
 from tsu_tpu_torch.rng import as_generator
 from tsu_tpu_torch.samplers.annealing import (
@@ -401,7 +402,12 @@ class IsingGrid(IsingModel):
         grid over its ``row`` axis, and over its ``col`` axis too when that
         is larger than 1 (:func:`~tsu_tpu_torch.parallel.sharded_lattice_sample`);
         the shards live on the mesh's devices. A grid with bonds, or on the
-        dense engine, ignores ``mesh``."""
+        dense engine, ignores ``mesh``.
+
+        On one card a uniform grid's observables come from the sweep's
+        planes, one K11 launch a sample (``ops/plane_observables.py``); on
+        the CPU from the merged lattice (``lattice_energy_batch``). Both give
+        the same float64 values, bit for bit."""
         with profiling.annotate("ising.sample_observables"):
             return self._sample_observables(n_samples, temperature, mesh)
 
@@ -422,18 +428,28 @@ class IsingGrid(IsingModel):
             return {"magnetization": out["magnetization"].numpy(),
                     "energy": out["energy"].numpy()}
         lattice0 = self._initial_lattice(None)
-        ms, es = [], []
-        for red, black in sample_chain(self._gen, lattice0,
-                                       **self._chain_args(n_samples, temperature)):
-            with profiling.annotate("ising.observables", lattice0.device):
-                lattice = merge_checkerboard(red, black).to(lattice0.dtype)
-                ms.append(lattice.to(torch.float64).sum() / self.n_spins)
-                es.append(lattice_energy_batch(lattice, J=self.coupling_strength,
-                                               field=0.0, periodic=self.periodic))
+        chain = sample_chain(self._gen, lattice0, **self._chain_args(n_samples, temperature))
+        if lattice0.device.type == "cuda":
+            m = torch.empty(n_samples, dtype=torch.float64, device=lattice0.device)
+            e = torch.empty_like(m)
+            scratch = observables_scratch((self.shape[0], self.shape[1] // 2), lattice0.device)
+            for i, (red, black) in enumerate(chain):
+                with profiling.annotate("ising.observables", lattice0.device):
+                    plane_observables(red, black, m, e, i, scratch, J=self.coupling_strength,
+                                      periodic=self.periodic)
+                    profiling.count("observables.fused_samples")
+        else:
+            ms, es = [], []
+            for red, black in chain:
+                with profiling.annotate("ising.observables", lattice0.device):
+                    lattice = merge_checkerboard(red, black).to(lattice0.dtype)
+                    ms.append(lattice.to(torch.float64).sum() / self.n_spins)
+                    es.append(lattice_energy_batch(lattice, J=self.coupling_strength,
+                                                   field=0.0, periodic=self.periodic))
+            m, e = torch.stack(ms), torch.stack(es)
         with profiling.annotate("ising.readout"):
             profiling.count("host_syncs", 2)   # the two series read back
-            return {"magnetization": torch.stack(ms).cpu().numpy(),
-                    "energy": torch.stack(es).cpu().numpy()}
+            return {"magnetization": m.cpu().numpy(), "energy": e.cpu().numpy()}
 
     def find_ground_state(self, n_steps: int = 1000) -> Tuple[np.ndarray, float]:
         """Anneal from T = 5.0 to 0.05 over n_steps sweeps; returns the best

@@ -92,8 +92,8 @@ class Stream(ctypes.c_void_p):
     supplies it."""
 
 
-P, I, U, F, L, S = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
-                    ctypes.c_longlong, Stream)
+P, I, U, F, D, L, S = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+                       ctypes.c_double, ctypes.c_longlong, Stream)
 IP = ctypes.POINTER(ctypes.c_int)
 
 # The C entries of each library and their argument types, in the order of
@@ -128,6 +128,9 @@ ENTRIES = {
     "dense_colour_sweep": {
         "tsu_dense_colour_sweep": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, S),
         "tsu_dense_colour_sweep_blocks_per_sm": (I, I, L, IP),
+    },
+    "plane_observables": {
+        "tsu_plane_observables": (P, P, P, P, P, I, I, I, I, I, I, I, D, D, S),
     },
 }
 
