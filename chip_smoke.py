@@ -299,16 +299,27 @@ Phases, each of which raises on failure:
     3, the planes in L2 as after a sweep) beside the merge route's on the card, which it replaced in
     IsingGrid.sample_observables, and its bound (the two planes read once
     over 3.35 TB/s); one call of the ferromagnet cell's entry at 4096^2 with
-    20 samples, which must launch K11 once a sample.
+    20 samples, which must launch K11 once a sample;
+46. the sharded lattice's own kernels at the sharded cell's per-card shard
+    (65,536 x 131,072 compact sites a plane, bf16, the third of four
+    shards): K12, the start drawn on the card, == its plain Philox draw at
+    every row, and K11's shard mode == the plain int64 reduction taken in
+    blocks of rows; each one's ms (CUDA events, median of 3) beside its
+    plain version's over the whole shard in blocks and its bound (the two
+    planes written, or read, once over 3.35 TB/s); one call of the sharded
+    cell's entry at 8192^2 with the cell's chain on make_mesh(rows=4,
+    devices=[cuda:0] * 4), which must launch K12 4 times, K11's shard mode
+    12 and K1's shard mode 200, and whose last sample must equal the plain
+    int64 sums of its final shards.
 
 A "slice 4:", a "slice 5:", a "slice 6:", a "slice 7:", a "slice 8:", a
-"slice 9:", a "houdayer:", a "dense fused:" and an "observables:" JSON log
-line carry those phases' numbers.
+"slice 9:", a "houdayer:", a "dense fused:", an "observables:" and a
+"sharded kernels:" JSON log line carry those phases' numbers.
 The last two lines are a JSON line per kernel (its time, launches, error,
 plain version's time and its bound: the bytes it must move over 3.35 TB/s,
 or for K6 and K7 the int32 instructions of their Philox calls over the
 card's int32 rate, the byte bound beside it; the eight TPU kernels K1-K8
-and their CUDA counterparts, and K9, K10 and K11, which replace none; K1, K2 and K9
+and their CUDA counterparts, and K9, K10, K11 and K12, which replace none; K1, K2 and K9
 also carry graph_ms, their time from
 a CUDA graph, K3 its time at bf16 and on the shard and its first body's
 times, K4 its time at 4096x4094, K5 at 64 x 256^2, K6 and K7 their
@@ -427,7 +438,13 @@ from tsu_tpu_torch.ops.houdayer_kernel import (
 )
 from tsu_tpu_torch.ops import dense_sweep_kernel
 from tsu_tpu_torch.ops.dense_sweep_kernel import dense_colour_sweep
-from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_observables
+from tsu_tpu_torch.ops.lattice_draw import draw_planes, draw_planes_reference
+from tsu_tpu_torch.ops.plane_observables import (
+    observables_scratch,
+    plane_observables,
+    plane_sums,
+    plane_sums_reference,
+)
 from tsu_tpu_torch.ops.kernel_decomposition import (
     MODES,
     decomposition_sweep,
@@ -2274,7 +2291,7 @@ def phase_resume(dev, workdir):
         lambda p, r: sharded_lattice_sample(
             mesh, 4, lat0, n_samples=8, temperature=2.269, n_burnin=10, n_sweeps=2,
             col_axis="col", checkpoint_path=p, checkpoint_every=0 if p is None else 2,
-            resume=r),
+            resume=r, final_planes=True),
         lattice, os.path.join(workdir, "sharded"),
         lambda a, b: (torch.equal(a["magnetization"], b["magnetization"])
                       and torch.equal(a["energy"], b["energy"])
@@ -3954,6 +3971,116 @@ def phase_observables(dev, name) -> dict:
     return out
 
 
+SHARDED_CELL = (65_536, 131_072)    # phase 46: one card's shard of the sharded cell, compact
+SHARDED_BLOCK = 2048                # rows a block of the plain versions at that shape
+
+
+def phase_sharded_kernels(dev, name) -> dict:
+    """Phase 46: K12 and K11's shard mode at the sharded cell's per-card
+    shard, each against its plain version over every row (in blocks of
+    rows) and timed beside it and its bound."""
+    R, C2 = SHARDED_CELL
+    base, row0 = 2**31 - 5, 2 * R
+    runs = {"draw_ms": [], "sums_ms": []}
+
+    def draws(n):
+        for _ in range(n):
+            draw_planes(base, R, C2, row0=row0, device=dev)
+
+    draws(1)                       # the build, and the planes' memory in the allocator's cache
+    for _ in range(3):
+        runs["draw_ms"].append(time_sweeps(draws, 1))
+    red, black = draw_planes(base, R, C2, row0=row0, device=dev)
+    up = draw_planes(base, 1, C2, row0=row0 - 1, device=dev)[1][0]
+    down = draw_planes(base, 1, C2, row0=row0 + R, device=dev)[1][0]
+    draw_plain_s = sums_plain_s = 0.0
+    draw_differing = 0
+    want = torch.zeros(2, dtype=torch.int64, device=dev)
+    for a in range(0, R, SHARDED_BLOCK):
+        b = min(a + SHARDED_BLOCK, R)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = draw_planes_reference(base, b - a, C2, row0=row0 + a, device=dev)
+        torch.cuda.synchronize()
+        draw_plain_s += time.perf_counter() - t
+        draw_differing += int((plain[0] != red[a:b]).sum() + (plain[1] != black[a:b]).sum())
+        del plain
+        t = time.perf_counter()
+        want += plane_sums_reference(red[a:b], black[a:b], black[a - 1] if a else up,
+                                     black[b] if b < R else down)
+        torch.cuda.synchronize()
+        sums_plain_s += time.perf_counter() - t
+    if draw_differing:
+        raise AssertionError(f"K12 != its plain draw at {draw_differing} sites")
+    sums = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    scratch = observables_scratch(red.shape, dev)
+    plane_sums(red, black, up, down, sums, 0, scratch)
+    sums_error = int((sums[0] - want).abs().max())
+    if sums_error:
+        raise AssertionError(f"K11's shard mode {sums[0].tolist()} != the plain sums "
+                             f"{want.tolist()}")
+
+    def reductions(n):
+        for _ in range(n):
+            plane_sums(red, black, up, down, sums, 0, scratch)
+
+    for _ in range(3):
+        runs["sums_ms"].append(time_sweeps(reductions, 5))
+    n_bytes = 2 * 2 * R * C2
+    del red, black, scratch
+    out = {"draw_ms": float(np.median(runs["draw_ms"])),
+           "sums_ms": float(np.median(runs["sums_ms"])), "runs_ms": runs,
+           "draw_plain_ms": draw_plain_s * 1e3, "sums_plain_ms": sums_plain_s * 1e3,
+           "draw_differing": draw_differing, "sums_error": sums_error,
+           "bound_ms": bound_ms(n_bytes), "shape": [R, C2], "row0": row0, "card": name,
+           "grid_call": sharded_grid_call(dev)}
+    log(f"phase 46: at the sharded cell's shard {R} x {C2} compact bf16, K12 == its plain draw "
+        f"and K11's shard mode == the plain sums; K12 {out['draw_ms']:.3f} ms, K11 shard "
+        f"{out['sums_ms']:.3f} ms (median of 3), plain {out['draw_plain_ms']:.1f} and "
+        f"{out['sums_plain_ms']:.1f} ms in blocks of {SHARDED_BLOCK} rows, bound "
+        f"{out['bound_ms']:.3f} ms each, on {name}; the cell's entry on one card: "
+        f"{out['grid_call']}")
+    return out
+
+
+SHARDED_CALL = dict(shape=(8192, 8192), rows=4, n_samples=3, n_burnin=20, n_sweeps=10)
+
+
+def sharded_grid_call(dev) -> dict:
+    """The sharded cell's entry, ``IsingGrid(...).sample_observables(...,
+    mesh=..., initial="mesh")``, at the cell's chain and a size one card
+    holds, on ``make_mesh(rows=4, devices=[dev] * 4)``: it must launch K12
+    once a shard, K11's shard mode once a shard a sample and K1's shard mode
+    once a shard a sweep, and its last sample must equal the plain int64
+    sums of its final shards."""
+    from tsu_tpu_torch.tools.sharded_check import plain_sums
+
+    c = SHARDED_CALL
+    n, sweeps = c["rows"], c["n_burnin"] + c["n_samples"] * c["n_sweeps"]
+    grid = IsingGrid(c["shape"], periodic=True, seed=2**31 + 46, device=dev,
+                     config=IsingConfig(temperature=2.269, n_burnin=c["n_burnin"],
+                                        n_sweeps=c["n_sweeps"]))
+    mesh = make_mesh(rows=n, devices=[dev] * n)
+    counters = (draw_planes, plane_sums, fused_sweep)
+    for f in counters:
+        f.launches = 0
+    out = grid.sample_observables(c["n_samples"], temperature=2.269, mesh=mesh, initial="mesh",
+                                  final_shards=True)
+    got = {f"{f.__name__}_launches": f.launches for f in counters}
+    want = {"draw_planes_launches": n, "plane_sums_launches": n * c["n_samples"],
+            "fused_sweep_launches": n * sweeps}
+    if got != want:
+        raise AssertionError(f"the sharded entry launched {got}, not {want}")
+    spins, bonds = plain_sums(out.pop("final_shards"))
+    N = c["shape"][0] * c["shape"][1]
+    errors = [abs(float(out["magnetization"][-1]) - spins / N),
+              abs(float(out["energy"][-1]) + float(bonds))]
+    if any(errors):
+        raise AssertionError(f"the sharded entry's last sample {out['magnetization'][-1]}, "
+                             f"{out['energy'][-1]} != the plain sums' {spins / N}, {-bonds}")
+    return {**got, "max_abs_err": max(errors), **c}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -4140,6 +4267,9 @@ def main() -> int:
         "launched it once a sample")
     log("observables: " + json.dumps(observables))
 
+    sharded_kernels = phase_sharded_kernels(dev, name)
+    log("sharded kernels: " + json.dumps(sharded_kernels))
+
     def slice9_launches(k):
         """The examples that launched kernel k, with their launches."""
         i = NAMES.index(k)
@@ -4205,6 +4335,7 @@ def main() -> int:
               shard_launches=launches1s, shard_ms=st["K1 shard"],
               shard_plain_ms=st["K1 shard plain"],
               shard_bound_ms=bound_ms(3 * 2 * shard_site + 4 * 2 * SHARD[1] // 2 + 9 * 4),
+              sharded_call_launches=sharded_kernels["grid_call"]["fused_sweep_launches"],
               slice7_launches=slice7_launches("K1"), slice8_launches=slice8_launches("K1"),
               slice9_launches=slice9_launches("K1")),
         entry("fused_sweep_batched", fused, "tsu_tpu/ops/checkerboard_fused.py:494", launches2,
@@ -4281,7 +4412,19 @@ def main() -> int:
         entry("plane_observables", "tsu_tpu_torch/csrc/plane_observables.cu", None,
               observables["cell_call_launches"], 0.0, observables["card_ms"],
               observables["merge_route_ms"], 2 * 2 * site, graph_ms=observables["graph_ms"],
-              runs_ms=observables["runs_ms"]),
+              runs_ms=observables["runs_ms"], shard_ms=sharded_kernels["sums_ms"],
+              shard_plain_ms=sharded_kernels["sums_plain_ms"],
+              shard_bound_ms=sharded_kernels["bound_ms"], shard_shape=sharded_kernels["shape"],
+              shard_max_abs_err=sharded_kernels["sums_error"],
+              shard_call_launches=sharded_kernels["grid_call"]["plane_sums_launches"]),
+        # K12 replaces no TPU kernel; its error is the sites where it differs
+        # from its plain draw; a draw writes the shard's two planes once.
+        entry("lattice_draw", "tsu_tpu_torch/csrc/lattice_draw.cu", None,
+              sharded_kernels["grid_call"]["draw_planes_launches"],
+              sharded_kernels["draw_differing"],
+              sharded_kernels["draw_ms"], sharded_kernels["draw_plain_ms"],
+              2 * 2 * SHARDED_CELL[0] * SHARDED_CELL[1], runs_ms=sharded_kernels["runs_ms"],
+              shape=sharded_kernels["shape"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -247,7 +247,7 @@ def test_sampler_energies_are_those_of_the_merged_planes(rows, cols, periodic):
     out = sharded_lattice_sample(
         make_mesh(rows=rows, cols=cols, devices=CPU4), 3, torch.ones(16, 20), n_samples=3,
         temperature=2.5, J=0.7, field=0.2, n_burnin=5, n_sweeps=2, periodic=periodic,
-        col_axis="col" if cols > 1 else None)
+        col_axis="col" if cols > 1 else None, final_planes=True)
     lat = merge_checkerboard(*out["final_planes"]).double()
     want = lattice_energy_batch(lat, J=0.7, field=0.2, periodic=periodic)
     assert float(out["energy"][-1]) == float(want)
@@ -266,7 +266,7 @@ def test_sampler_killed_and_resumed_equals_uninterrupted(tmp_path, monkeypatch, 
     lat0 = torch.where(torch.rand((8, 8), generator=torch.Generator().manual_seed(2)) < 0.5,
                        1.0, -1.0)
     kw = dict(n_samples=6, temperature=2.3, n_burnin=3, n_sweeps=2,
-              col_axis="col" if cols > 1 else None)
+              col_axis="col" if cols > 1 else None, final_planes=True)
     full = sharded_lattice_sample(mesh, 5, lat0, **kw)
     path = str(tmp_path / "ck")
     if killed_after is not None:
@@ -300,7 +300,7 @@ def test_sampler_killed_short_resumes_to_a_longer_horizon(tmp_path, rows, cols):
     mesh = make_mesh(rows=rows, cols=cols, devices=CPU4)
     lat0 = torch.ones((64, 64))
     kw = dict(n_samples=12, temperature=2.3, n_burnin=20, n_sweeps=1,
-              col_axis="col" if cols > 1 else None)
+              col_axis="col" if cols > 1 else None, final_planes=True)
     full = sharded_lattice_sample(mesh, 0, lat0, **kw)
     path = str(tmp_path / "ck")
     short = sharded_lattice_sample(mesh, 0, lat0, checkpoint_path=path, checkpoint_every=4,

@@ -36,6 +36,16 @@
 // in registers, so each black row is read once a strip plus two halo rows,
 // with 16-byte loads where W columns divide the row; the one black neighbour
 // outside a thread's columns comes from L1.
+//
+// Shard mode (plane_sums_kernel, the same body): one row shard of a lattice
+// sharded by rows over several cards (parallel/lattice.py). The black rows
+// above and below the shard come from the caller's halo rows, and the last
+// block writes the shard's int64 (spin, bond) instead of m and E; the caller
+// adds the shards' sums on one card and forms m and E from them in float64,
+// as the whole-plane kernel does. Offsets are size_t and a thread's rows and
+// columns int: a 65,536 x 131,072 shard plane (8.6e9 sites) is walked by
+// 1,024 blocks of 8.4e6 red sites each, whose int32 sums stay within
+// 4 x 8.4e6 = 3.4e7 in magnitude.
 
 #include <cstdint>
 
@@ -115,13 +125,26 @@ __device__ __forceinline__ T block_sum(T x, T* shared) {
   return total;
 }
 
-// Lattice blockIdx.y of the batch; W columns a thread (W divides C2).
-template <class D, int W>
-__global__ void __launch_bounds__(NT) plane_observables_kernel(
+// Where a reduction's rows end. The whole-plane kernel wraps row -1 and row
+// R onto the plane's last and first rows (periodic) or reads zeros there
+// (open); shard mode reads them from the black halo rows `up` and `down`,
+// the neighbour shards' edge rows (zeros at an open lattice's edge).
+template <class D>
+struct Edges {
+  const typename D::Bits* up;
+  const typename D::Bits* down;
+};
+
+// The sums of lattice blockIdx.y of the batch, W columns a thread (W divides
+// C2), ending in the last block, which gets the lattice's (spin, bond) in s
+// and t and returns true; every other block returns false. SHARD takes rows
+// -1 and R from `edges`.
+template <class D, int W, bool SHARD>
+__device__ __forceinline__ bool reduce_planes(
     const typename D::Bits* __restrict__ red, const typename D::Bits* __restrict__ black,
-    double* __restrict__ m, double* __restrict__ e, long long* __restrict__ partials,
-    unsigned long long* __restrict__ tickets, int R, int C2, bool periodic, int out_row,
-    double J, double field, double n_sites) {
+    const Edges<D>& edges, long long* __restrict__ partials,
+    unsigned long long* __restrict__ tickets, int R, int C2, bool periodic, long long& s,
+    long long& t) {
   const int b = blockIdx.y;
   const size_t plane = (size_t)R * C2;
   red += b * plane;
@@ -135,14 +158,18 @@ __global__ void __launch_bounds__(NT) plane_observables_kernel(
     const int r0 = (int)(it / chunks) * STRIP, j0 = (int)(it % chunks) * W;
     const int r1 = min(r0 + STRIP, R);
     float up[W], mid[W], dn[W], rv[W];
-    if (r0 > 0 || periodic)
+    if (SHARD && r0 == 0)
+      load<D, W>(edges.up + j0, up);
+    else if (r0 > 0 || periodic)
       load<D, W>(black + (size_t)(r0 > 0 ? r0 - 1 : R - 1) * C2 + j0, up);
     else
       zero(up);
     load<D, W>(black + (size_t)r0 * C2 + j0, mid);
     float fs = 0.f, fb = 0.f;
     for (int i = r0; i < r1; ++i) {
-      if (i + 1 < R || periodic)
+      if (SHARD && i + 1 == R)
+        load<D, W>(edges.down + j0, dn);
+      else if (i + 1 < R || periodic)
         load<D, W>(black + (size_t)(i + 1 < R ? i + 1 : 0) * C2 + j0, dn);
       else
         zero(dn);
@@ -185,9 +212,9 @@ __global__ void __launch_bounds__(NT) plane_observables_kernel(
     last = atomicAdd(tickets + b, 1ull) == gridDim.x - 1;
   }
   __syncthreads();
-  if (!last) return;
+  if (!last) return false;
   __threadfence();
-  long long s = 0, t = 0;
+  s = t = 0;
   for (int k = threadIdx.x; k < (int)gridDim.x; k += NT) {
     const long long* p = partials + 2 * ((size_t)b * gridDim.x + k);
     s += __ldcg(p);
@@ -195,13 +222,50 @@ __global__ void __launch_bounds__(NT) plane_observables_kernel(
   }
   s = block_sum(s, shared64);
   t = block_sum(t, shared64);
+  return true;
+}
+
+// K11 on whole periodic or open planes: float64 m and E into row out_row.
+template <class D, int W>
+__global__ void __launch_bounds__(NT) plane_observables_kernel(
+    const typename D::Bits* __restrict__ red, const typename D::Bits* __restrict__ black,
+    double* __restrict__ m, double* __restrict__ e, long long* __restrict__ partials,
+    unsigned long long* __restrict__ tickets, int R, int C2, bool periodic, int out_row,
+    double J, double field, double n_sites) {
+  long long s, t;
+  if (!reduce_planes<D, W, false>(red, black, Edges<D>{}, partials, tickets, R, C2, periodic, s,
+                                  t))
+    return;
   if (threadIdx.x == 0) {
+    const int b = blockIdx.y;
     const double ds = (double)s, dt = (double)t;
     const size_t o = (size_t)out_row * gridDim.y + b;
     m[o] = __ddiv_rn(ds, n_sites);
     e[o] = __dsub_rn(__dmul_rn(-J, dt), __dmul_rn(field, ds));
     tickets[b] = 0;
   }
+}
+
+// K11's shard mode on one row shard: its int64 (spin, bond) into row out_row
+// of `sums`, for the caller to add across shards.
+template <class D, int W>
+__global__ void __launch_bounds__(NT) plane_sums_kernel(
+    const typename D::Bits* __restrict__ red, const typename D::Bits* __restrict__ black,
+    Edges<D> edges, long long* __restrict__ sums, long long* __restrict__ partials,
+    unsigned long long* __restrict__ tickets, int R, int C2, bool periodic, int out_row) {
+  long long s, t;
+  if (!reduce_planes<D, W, true>(red, black, edges, partials, tickets, R, C2, periodic, s, t))
+    return;
+  if (threadIdx.x == 0) {
+    sums[2 * (size_t)out_row] = s;
+    sums[2 * (size_t)out_row + 1] = t;
+    tickets[0] = 0;
+  }
+}
+
+bool aligned16(const void* a, const void* b, const void* c = nullptr,
+               const void* d = nullptr) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) % 16) == 0;
 }
 
 template <class D>
@@ -212,14 +276,31 @@ int launch(const void* red, const void* black, double* m, double* e, long long* 
   const auto* k = static_cast<const typename D::Bits*>(black);
   const double n_sites = 2.0 * R * (double)C2;
   const dim3 grid(blocks, B);
-  const bool vec = C2 % D::VEC == 0 && reinterpret_cast<uintptr_t>(red) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(black) % 16 == 0;
+  const bool vec = C2 % D::VEC == 0 && aligned16(red, black);
   if (vec)
     plane_observables_kernel<D, D::VEC><<<grid, NT, 0, st>>>(
         r, k, m, e, partials, tickets, R, C2, periodic, index, J, field, n_sites);
   else
     plane_observables_kernel<D, 1><<<grid, NT, 0, st>>>(
         r, k, m, e, partials, tickets, R, C2, periodic, index, J, field, n_sites);
+  return (int)cudaGetLastError();
+}
+
+template <class D>
+int launch_sums(const void* red, const void* black, const void* up, const void* down,
+                long long* sums, long long* partials, unsigned long long* tickets, int R, int C2,
+                bool periodic, int blocks, int index, cudaStream_t st) {
+  using Bits = typename D::Bits;
+  const auto* r = static_cast<const Bits*>(red);
+  const auto* k = static_cast<const Bits*>(black);
+  const Edges<D> edges = {static_cast<const Bits*>(up), static_cast<const Bits*>(down)};
+  const bool vec = C2 % D::VEC == 0 && aligned16(red, black, up, down);
+  if (vec)
+    plane_sums_kernel<D, D::VEC><<<blocks, NT, 0, st>>>(r, k, edges, sums, partials, tickets, R,
+                                                        C2, periodic, index);
+  else
+    plane_sums_kernel<D, 1><<<blocks, NT, 0, st>>>(r, k, edges, sums, partials, tickets, R, C2,
+                                                   periodic, index);
   return (int)cudaGetLastError();
 }
 
@@ -247,6 +328,33 @@ extern "C" int tsu_plane_observables(const void* red, const void* black, void* m
     case DT_BF16:
       return launch<Bf16>(red, black, dm, de, partials, tickets, B, R, C2, periodic != 0, blocks,
                           index, J, field, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Shard mode: the spin sum and the bond sum of one row shard of a lattice,
+// its contiguous (R, C2) red and black planes of the type `dtype` names, as
+// int64 into row `index` of the (rows, 2) int64 `sums`. up and down: the (C2,)
+// black rows above and below the shard (the neighbour shards' edge rows,
+// zeros at an open lattice's edge), each red site's vertical neighbours
+// outside the shard; `periodic` wraps the columns. scratch: as
+// tsu_plane_observables' with B = 1. Returns cudaGetLastError() after the
+// launch; 1 (cudaErrorInvalidValue) for another dtype.
+extern "C" int tsu_plane_sums(const void* red, const void* black, const void* up,
+                              const void* down, void* sums, void* scratch, int dtype, int R,
+                              int C2, int periodic, int blocks, int index, void* stream) {
+  auto* partials = static_cast<long long*>(scratch);
+  auto* tickets = reinterpret_cast<unsigned long long*>(partials + 2 * (size_t)blocks);
+  auto* out = static_cast<long long*>(sums);
+  const auto st = (cudaStream_t)stream;
+  switch (dtype) {
+    case DT_F32:
+      return launch_sums<F32>(red, black, up, down, out, partials, tickets, R, C2, periodic != 0,
+                              blocks, index, st);
+    case DT_BF16:
+      return launch_sums<Bf16>(red, black, up, down, out, partials, tickets, R, C2,
+                               periodic != 0, blocks, index, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

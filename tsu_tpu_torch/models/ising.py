@@ -33,7 +33,7 @@ from tsu_tpu_torch.models.lattice_sampler import (
 from tsu_tpu_torch.ops.checkerboard import lattice_energy_batch, merge_checkerboard
 from tsu_tpu_torch.ops.checkerboard_bonds import lattice_energy_bonds, sample_lattice_bonds
 from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_observables
-from tsu_tpu_torch.parallel.lattice import sharded_lattice_sample
+from tsu_tpu_torch.parallel.lattice import MeshStart, sharded_lattice_sample
 from tsu_tpu_torch.rng import as_generator
 from tsu_tpu_torch.samplers.annealing import (
     anneal_lattice,
@@ -238,7 +238,10 @@ class IsingGrid(IsingModel):
             self.device = resolve_device(device)
             self._gen = as_generator(seed)
             self.J = None
-            self.h = np.zeros(self.n_spins, dtype=np.float32)
+            # The stencil engines take no field: a read-only view of one zero,
+            # so that a grid larger than the host's memory holds no array of
+            # its size.
+            self.h = np.broadcast_to(np.float32(0.0), (self.n_spins,))
             self._plan_of = None
             if bonds is not None:
                 self.set_bonds(*bonds)
@@ -309,6 +312,7 @@ class IsingGrid(IsingModel):
                     "IsingModel with a dense J instead")
             self._fast = False
             self.J = np.zeros((self.n_spins, self.n_spins), dtype=np.float32)
+            self.h = np.array(self.h, dtype=np.float32)   # a field set before is kept
             self._build_dense()
         super().set_coupling(i, j, strength)
 
@@ -394,7 +398,8 @@ class IsingGrid(IsingModel):
 
     def sample_observables(self, n_samples: int = 100,
                            temperature: Optional[float] = None,
-                           mesh=None) -> dict:
+                           mesh=None, initial: Optional[str] = None,
+                           final_rows=None, final_shards: bool = False) -> dict:
         """Per-sample magnetization (per spin) and total energy, without
         returning states; the lattice stays on the device.
 
@@ -404,14 +409,35 @@ class IsingGrid(IsingModel):
         the shards live on the mesh's devices. A grid with bonds, or on the
         dense engine, ignores ``mesh``.
 
+        ``initial="mesh"`` (a uniform grid with a ``mesh`` only) draws the
+        random start on the mesh's devices, each shard its own rows, from one
+        base drawn from the grid's generator and keyed by global coordinates
+        (:class:`~tsu_tpu_torch.parallel.lattice.MeshStart`): the lattice is
+        the same for any number of shards and never exists whole, so a
+        lattice larger than one card runs. The default draws the start on
+        the host. ``final_rows`` (with a ``mesh``): global rows of the final
+        state to return too, as ``"final_rows"``, (red, black) numpy arrays
+        of those rows of the compact planes. ``final_shards=True`` (with a
+        ``mesh``): the final state's shards too, as ``"final_shards"``,
+        {(i, j): (red, black)} on their devices; they hold the lattice's
+        memory for as long as the caller keeps them.
+
         On one card a uniform grid's observables come from the sweep's
         planes, one K11 launch a sample (``ops/plane_observables.py``); on
         the CPU from the merged lattice (``lattice_energy_batch``). Both give
         the same float64 values, bit for bit."""
+        if initial not in (None, "mesh"):
+            raise ConfigurationError(f"initial must be None (the host) or 'mesh', got {initial!r}")
+        sharded = mesh is not None and self._fast and self._Jh is None
+        if (initial == "mesh" or final_rows is not None or final_shards) and not sharded:
+            raise ConfigurationError("initial='mesh', final_rows and final_shards take a uniform "
+                                     "even grid sharded on a mesh: pass mesh=")
         with profiling.annotate("ising.sample_observables"):
-            return self._sample_observables(n_samples, temperature, mesh)
+            return self._sample_observables(n_samples, temperature, mesh, initial == "mesh",
+                                            final_rows, final_shards)
 
-    def _sample_observables(self, n_samples, temperature, mesh) -> dict:
+    def _sample_observables(self, n_samples, temperature, mesh, on_mesh=False,
+                            final_rows=None, final_shards=False) -> dict:
         if not self._fast:
             samples = self.sample(n_samples, temperature=temperature)
             return {"magnetization": samples.mean(axis=1), "energy": self.energies(samples)}
@@ -421,12 +447,19 @@ class IsingGrid(IsingModel):
                                        **self._bond_chain_args(n_samples, temperature))
             return {k: v.cpu().numpy() for k, v in out.items()}
         if mesh is not None:
+            start = (MeshStart(self.shape, int(torch.randint(0, 2**31 - 1, (),
+                                                             generator=self._gen)))
+                     if on_mesh else self._initial_lattice(None))
             out = sharded_lattice_sample(
-                mesh, self._gen, self._initial_lattice(None),
-                col_axis="col" if mesh.shape["col"] > 1 else None,
-                **self._chain_args(n_samples, temperature))
-            return {"magnetization": out["magnetization"].numpy(),
-                    "energy": out["energy"].numpy()}
+                mesh, self._gen, start, col_axis="col" if mesh.shape["col"] > 1 else None,
+                final_rows=final_rows, **self._chain_args(n_samples, temperature))
+            got = {"magnetization": out["magnetization"].numpy(),
+                   "energy": out["energy"].numpy()}
+            if final_rows is not None:
+                got["final_rows"] = tuple(p.float().numpy() for p in out["final_rows"])
+            if final_shards:
+                got["final_shards"] = out["shards"]
+            return got
         lattice0 = self._initial_lattice(None)
         chain = sample_chain(self._gen, lattice0, **self._chain_args(n_samples, temperature))
         if lattice0.device.type == "cuda":

@@ -131,6 +131,10 @@ ENTRIES = {
     },
     "plane_observables": {
         "tsu_plane_observables": (P, P, P, P, P, I, I, I, I, I, I, I, D, D, S),
+        "tsu_plane_sums": (P, P, P, P, P, P, I, I, I, I, I, I, S),
+    },
+    "lattice_draw": {
+        "tsu_lattice_draw": (P, P, I, I, I, I, U, U, I, S),
     },
 }
 

@@ -11,6 +11,12 @@ integers, so the two agree bit for bit; ``IsingGrid.sample_observables``
 runs that on the CPU and K11 on the card. This wrapper takes CUDA tensors
 only and raises on any other. K11 replaces no Pallas kernel: the JAX package
 takes these observables with XLA ops.
+
+``plane_sums`` is K11's shard mode, for one row shard of a lattice sharded
+over several cards (``parallel/lattice.py``): the shard's spin sum and bond
+sum, int64, into one row of a tensor on its card, the black rows above and
+below the shard given as halo rows. The caller adds the shards' sums and
+forms m and E from them. On the CPU it runs ``plane_sums_reference``.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from tsu_tpu_torch.ops._build import MAX_BATCH, call, library
+from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half_halo
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # K11's codes
 THREADS, STRIP = 256, 8     # a block's threads and a thread's rows, as the source has them
@@ -90,3 +97,57 @@ def plane_observables(red, black, m, e, index: int, scratch, *, J: float, field:
 
 
 plane_observables.launches = 0
+
+
+def plane_sums_reference(red, black, up, down, *, periodic: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K11's shard mode: the (spin sum, bond sum) of
+    a row shard's (R, C2) planes, an int64 (2,) tensor. ``up`` and ``down``
+    hold the C2 black sites of the rows above and below the shard; each bond
+    is counted at its red site."""
+    r, b = red.to(torch.int64), black.to(torch.int64)
+    nbr = neighbor_sum_half_halo(b, up.reshape(1, -1).to(torch.int64),
+                                 down.reshape(1, -1).to(torch.int64), True, periodic)
+    return torch.stack([r.sum() + b.sum(), (r * nbr).sum()])
+
+
+def plane_sums(red, black, up, down, sums, index: int, scratch=None, *, periodic: bool = True):
+    """The spin and bond sums of one row shard into ``sums[index]``.
+
+    ``red``, ``black``: (R, C2) float32 or bfloat16 planes of the shard, R
+    even. ``up``, ``down``: the black rows above and below it, C2 values of
+    the planes' dtype each (zeros at an open lattice's edge). ``sums``: an
+    int64 (rows, 2) tensor. ``periodic`` wraps the columns. On the card one
+    launch of K11's shard mode, with ``scratch`` the
+    :func:`observables_scratch` of the (R, C2) planes, every tensor
+    contiguous on one CUDA device, and ``plane_sums.launches`` grows by one;
+    on the CPU :func:`plane_sums_reference`."""
+    _, R, C2 = _planes(red, black)
+    if red.dim() != 2:
+        raise ValueError(f"a shard is one (R, C2) plane pair, got {tuple(red.shape)}")
+    for name, x in (("up", up), ("down", down)):
+        if x.numel() != C2 or x.dtype != red.dtype:
+            raise ValueError(f"{name} must be {C2} values of {red.dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if sums.dtype != torch.int64 or sums.dim() != 2 or sums.shape[1] != 2 \
+            or not 0 <= index < sums.shape[0]:
+        raise ValueError(f"sums must be int64 (rows, 2) with row {index}, got "
+                         f"{tuple(sums.shape)} {sums.dtype}")
+    dev = red.device
+    if dev.type == "cpu":
+        sums[index] = plane_sums_reference(red, black, up, down, periodic=periodic)
+        return
+    for name, x in (("red", red), ("black", black), ("up", up), ("down", down), ("sums", sums),
+                    ("scratch", scratch)):
+        if x is None or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on the planes' CUDA device, got "
+                             f"{None if x is None else x.device}")
+    n = blocks(R, C2)
+    if scratch.dtype != torch.int64 or scratch.numel() != 2 * n + 1:
+        raise ValueError(f"scratch must be {2 * n + 1} int64, got {scratch.numel()} "
+                         f"{scratch.dtype}")
+    call(library("plane_observables").tsu_plane_sums, dev, red, black, up, down, sums, scratch,
+         _DTYPES[red.dtype], R, C2, int(periodic), n, index)
+    plane_sums.launches += 1
+
+
+plane_sums.launches = 0

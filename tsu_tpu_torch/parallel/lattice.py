@@ -8,7 +8,7 @@ the reference's replicated copies and take their index 0). Before each
 kernel launch a shard gets its halo: the neighbour shards' edge rows (and
 columns), sliced, copied only to another device (on the shard's own device
 they are views, read in place), zeroed at an open global edge.
-Only the per-sample scalars and the final planes come back.
+Only the per-sample scalars come back, and the final planes when asked.
 
 Across processes (``parallel.multihost_initialize``) each rank builds and
 sweeps only the shards the mesh gives it (``Mesh.ranks``). Halos between
@@ -18,6 +18,14 @@ messages posted together and tagged by the receiving shard and direction.
 Each rank sums its shards' spins and bonds per sample, and the ranks add
 them up in float64 once, at the end of the run or at a snapshot; the final
 planes and the snapshots are gathered on rank 0.
+
+A lattice too large for one card starts from a :class:`MeshStart`: each
+shard's planes are drawn on its own device (K12, ``ops/lattice_draw.py``),
+keyed by global coordinates, so the lattice never exists whole and is the
+same for any number of shards. Its observables are summed shard by shard
+on the shards' devices (K11's shard mode, ``ops/plane_observables.py``:
+int64 sums of a shard and the black rows around it, no temporary of a
+shard's size) and added on the first shard's device.
 
 Kernels, by the shards' tensors' device (a CPU mesh runs their plain
 versions):
@@ -40,15 +48,16 @@ parity; the reference's rows-per-shard % 8 rule is TPU tiling and is gone.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from tsu_tpu_torch.ops.checkerboard import (
-    neighbor_sum_half_halo,
-    neighbor_sum_half_halo2d,
-    split_checkerboard,
-)
+from tsu_tpu_torch import profiling
+from tsu_tpu_torch.ops.checkerboard import neighbor_sum_half_halo2d, split_checkerboard
 from tsu_tpu_torch.ops.checkerboard_fused import fused_sweep, sigmoid_table16
 from tsu_tpu_torch.ops.checkerboard_kernel import halfsweep
+from tsu_tpu_torch.ops.lattice_draw import draw_planes
+from tsu_tpu_torch.ops.plane_observables import observables_scratch, plane_sums
 from tsu_tpu_torch.config import ConfigurationError
 from tsu_tpu_torch.parallel import distributed
 from tsu_tpu_torch.parallel.mesh import Mesh
@@ -146,12 +155,25 @@ def _halos(planes, periodic: bool, grid, axis: int, width: int):
                     if mine(i, j):
                         out[d][i][j] = torch.zeros_like(take(planes[i][j]))
                 elif mine(i, j) and mine(*src):
-                    out[d][i][j] = take(planes[src[0]][src[1]]).to(planes[i][j].device)
+                    out[d][i][j] = _copy(take(planes[src[0]][src[1]]), planes[i][j].device,
+                                         "sharded.halo_copies")
                 else:
                     wanted.append((i, j, 2 * axis + d, d, src, take))
     if grid is not None and grid.multi:
         _trade(grid, planes, out, wanted)
     return out[0], out[1]
+
+
+def _copy(t: torch.Tensor, device, counter: str = None) -> torch.Tensor:
+    """``t`` on ``device``: itself on its own device, else a copy, counted
+    while tracing under ``counter`` and its bytes under
+    ``sharded.peer_bytes``."""
+    if t.device == torch.device(device):
+        return t
+    if counter:
+        profiling.count(counter)
+    profiling.count("sharded.peer_bytes", t.numel() * t.element_size())
+    return t.to(device)
 
 
 def _trade(grid: _Grid, planes, out, wanted):
@@ -178,7 +200,8 @@ def _halo_exchange(planes, periodic: bool, rows: int = 1, grid: _Grid = None):
     row and below its last one, (rows, C2), the neighbour shards' along the
     row axis, on its device; zeros at the global top and bottom of an open
     lattice (:func:`_halos`)."""
-    return _halos(planes, periodic, grid, 0, rows)
+    with profiling.annotate("sharded.halo"):
+        return _halos(planes, periodic, grid, 0, rows)
 
 
 def _halo_exchange2(planes, periodic: bool, grid: _Grid = None):
@@ -197,7 +220,8 @@ def _halo_exchange_cols(planes, periodic: bool, grid: _Grid = None):
     no copy: K3 reads it in place, and no launch of a half-step writes what
     another reads (each writes a new plane). Across devices ``.to`` copies
     it; from another rank it arrives contiguous."""
-    return _halos(planes, periodic, grid, 1, 1)
+    with profiling.annotate("sharded.halo"):
+        return _halos(planes, periodic, grid, 1, 1)
 
 
 def _make_local_halfstep(grid: _Grid, periodic: bool, J: float, field: float,
@@ -261,28 +285,58 @@ def _make_local_fused_sweep(grid: _Grid, periodic: bool, J: float, field: float,
     return sweep
 
 
-def _local_observables(grid: _Grid, reds, blacks, periodic: bool, col_sharded: bool):
-    """(sum of the spins, sum of the bonds) over this process's shards, a
-    (2,) float64 tensor on ``grid.home``; both are exact integers, so the
-    sums over ranks are exact in any order. Every bond joins a red site to a
-    black one, so the bond sum is each red shard times its black neighbour
-    sum, the black halos included: each bond is counted once, by the shard
-    that holds its red site."""
+def _shard_sums(grid: _Grid, reds, blacks, periodic: bool, col_sharded: bool, sums: dict,
+                scratch: dict, i: int):
+    """Write sample i's (sum of the spins, sum of the bonds) of each local
+    shard into row i of its int64 ``sums[(a, b)]``, on the shard's device.
+    Both are exact integers, so their sums over shards and ranks are exact
+    in any order. Every bond joins a red site to a black one, so the bond
+    sum is each red shard times its black neighbour sum, the black halos
+    included: each bond is counted once, by the shard that holds its red
+    site. Row shards take K11's shard mode (the plain version on the CPU);
+    column shards the plain neighbour sum with column halos."""
     ups, downs = _halo_exchange(blacks, periodic, grid=grid)
     if col_sharded:
         lefts, rights = _halo_exchange_cols(blacks, periodic, grid)
-    dev = grid.home
-    bond = spins = torch.zeros((), dtype=torch.float64, device=dev)
-    for i, j in grid.local:
-        b, r = blacks[i][j], reds[i][j]
+    for a, b in grid.local:
+        red, black = reds[a][b], blacks[a][b]
         if col_sharded:
-            nbr = neighbor_sum_half_halo2d(b, ups[i][j], downs[i][j], lefts[i][j],
-                                           rights[i][j], True)
-        else:
-            nbr = neighbor_sum_half_halo(b, ups[i][j], downs[i][j], True, periodic)
-        bond = bond + (r * nbr).sum(dtype=torch.float64).to(dev)
-        spins = spins + (r.sum(dtype=torch.float64) + b.sum(dtype=torch.float64)).to(dev)
-    return torch.stack([spins, bond])
+            nbr = neighbor_sum_half_halo2d(black, ups[a][b], downs[a][b], lefts[a][b],
+                                           rights[a][b], True)
+            spins = red.sum(dtype=torch.float64) + black.sum(dtype=torch.float64)
+            bonds = (red * nbr).sum(dtype=torch.float64)
+            sums[a, b][i] = torch.stack([spins, bonds]).to(torch.int64)
+            continue
+        if (a, b) not in scratch:
+            scratch[a, b] = (observables_scratch(red.shape, red.device)
+                             if red.device.type == "cuda" else None)
+        plane_sums(red, black, ups[a][b], downs[a][b], sums[a, b], i, scratch[a, b],
+                   periodic=periodic)
+
+
+def _final_rows(grid: _Grid, reds, blacks, rows) -> tuple:
+    """The global ``rows`` of the final (red, black) planes, each a
+    (len(rows), C2) CPU tensor: each shard's rows taken in one
+    ``index_select`` on its device and put in order on the first shard's,
+    then one copy to the host a plane (one process only)."""
+    if grid.multi:
+        raise ConfigurationError("final_rows reads the shards of one process; a multi-process "
+                                 "run gathers with final_planes")
+    R_l = reds[0][0].shape[0]
+    where = [divmod(int(g) % (R_l * grid.n), R_l) for g in rows]
+    home = grid.home
+    out = []
+    for planes in (reds, blacks):
+        C2 = sum(planes[0][j].shape[1] for j in range(grid.m))
+        got = torch.empty((len(where), C2), dtype=planes[0][0].dtype, device=home)
+        for a in sorted({a for a, _ in where}):
+            ks = [k for k, (s, _) in enumerate(where) if s == a]
+            local = torch.tensor([where[k][1] for k in ks])
+            got[torch.tensor(ks, device=home)] = torch.cat(
+                [planes[a][j].index_select(0, local.to(planes[a][j].device)).to(home)
+                 for j in range(grid.m)], dim=1)
+        out.append(got.cpu())
+    return tuple(out)
 
 
 def _route(mesh, R, C2, axis_name, col_axis, fused, uniforms):
@@ -307,13 +361,16 @@ def _base(seed) -> int:
     return int(torch.randint(0, 2**31 - 1, (), generator=as_generator(seed)))
 
 
-def _run_sweeps(grid, red, black, sweep_ids, fused: bool, base: int, T, periodic, J, field,
+def _run_sweeps(grid, planes: list, sweep_ids, fused: bool, base: int, T, periodic, J, field,
                 col_sharded, uniforms=None):
     """Sweeps ``sweep_ids`` on sharded planes, K1 in shard mode when
-    ``fused`` and K3 otherwise. ``uniforms``: for K3 the per-shard
-    (n, 2, R_l, C_l) int32; for K1 (those shards, tops, bots), tops[i] and
-    bots[i] the (n, C2) red uniforms of the rows above and below row shard
-    i."""
+    ``fused`` and K3 otherwise. ``planes``: the list [reds, blacks] of the
+    local shards, replaced in place after each sweep, so that no plane a
+    sweep no longer needs outlives it: a sweep reads black and writes new
+    red and black, and the old red is let go before it (three planes a
+    shard at the peak). ``uniforms``: for K3 the per-shard (n, 2, R_l, C_l)
+    int32; for K1 (those shards, tops, bots), tops[i] and bots[i] the (n,
+    C2) red uniforms of the rows above and below row shard i."""
     if fused:
         local = _make_local_fused_sweep(grid, periodic, J, field, T)
         for n, k in enumerate(sweep_ids):
@@ -322,17 +379,18 @@ def _run_sweeps(grid, red, black, sweep_ids, fused: bool, base: int, T, periodic
                 shards, tops, bots = uniforms
                 u = [[None if s is None else s[n] for s in row] for row in shards]
                 u_halo = [None if t is None else (t[n], b[n]) for t, b in zip(tops, bots)]
-            red, black = local(black, base, k, u, u_halo)
-        return red, black
+            planes[0] = None
+            planes[:] = local(planes[1], base, k, u, u_halo)
+        return
     local = _make_local_halfstep(grid, periodic, J, field, col_sharded)
     for n, k in enumerate(sweep_ids):
         u = (None, None)
         if uniforms is not None:
             u = tuple([[None if s is None else s[n, c] for s in row] for row in uniforms]
                       for c in (0, 1))
-        red = local(black, True, bond_key(base, 0, k), T, u[0])
-        black = local(red, False, bond_key(base, 1, k), T, u[1])
-    return red, black
+        planes[0] = None
+        planes[0] = local(planes[1], True, bond_key(base, 0, k), T, u[0])
+        planes[1] = local(planes[0], False, bond_key(base, 1, k), T, u[1])
 
 
 def sharded_checkerboard_sweeps(mesh: Mesh, seed, red: torch.Tensor, black: torch.Tensor,
@@ -374,9 +432,11 @@ def sharded_checkerboard_sweeps(mesh: Mesh, seed, red: torch.Tensor, black: torc
             bots = [U[:, 0, ((i + 1) * R_l) % R].contiguous().to(grid.devs[i][0])
                     if i in rows else None for i in range(n)]
             shards = (shards, tops, bots)
-    reds, blacks = _run_sweeps(grid, reds, blacks, range(n_sweeps), fused, base, temperature,
-                               periodic, J, field, col_axis is not None, shards)
-    return _gather(grid, reds, blacks)
+    planes = [reds, blacks]
+    del reds, blacks
+    _run_sweeps(grid, planes, range(n_sweeps), fused, base, temperature, periodic, J, field,
+                col_axis is not None, shards)
+    return _gather(grid, *planes)
 
 
 def _snapshot(grid: _Grid, path, state: dict, reds, blacks):
@@ -390,29 +450,64 @@ def _snapshot(grid: _Grid, path, state: dict, reds, blacks):
         distributed.barrier()
 
 
-def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_samples: int,
+@dataclass(frozen=True)
+class MeshStart:
+    """The random start of a sharded lattice, drawn on the mesh: a lattice of
+    ``shape`` (R, C) whose every site is +1 or -1 by the Philox word of its
+    global coordinates under ``rng.draw_key(base)`` (K12,
+    ``ops/lattice_draw.py``). :func:`sharded_lattice_sample` takes it in
+    place of ``lattice0`` and draws each shard on its own device."""
+
+    shape: tuple
+    base: int
+
+
+def _draw_shards(grid: _Grid, start: MeshStart, dtype) -> tuple:
+    """The local shards of ``start``'s planes, each drawn on its device."""
+    R, C = start.shape
+    r, c = R // grid.n, C // 2 // grid.m
+    reds = [[None] * grid.m for _ in range(grid.n)]
+    blacks = [[None] * grid.m for _ in range(grid.n)]
+    with profiling.annotate("sharded.draw"):
+        for i, j in grid.local:
+            red, black = draw_planes(start.base, r, C // 2, row0=i * r, device=grid.devs[i][j],
+                                     dtype=dtype)
+            if grid.m > 1:
+                red, black = (p[:, j * c:(j + 1) * c].contiguous() for p in (red, black))
+            reds[i][j], blacks[i][j] = red, black
+    return reds, blacks
+
+
+def sharded_lattice_sample(mesh: Mesh, seed, lattice0, *, n_samples: int,
                            temperature, J: float = 1.0, field: float = 0.0,
                            n_burnin: int = 100, n_sweeps: int = 1, periodic: bool = True,
                            axis_name: str = "row", col_axis: str | None = None,
                            fused: bool | None = None, dtype=None, checkpoint_path=None,
-                           checkpoint_every: int = 0, resume: bool = False) -> dict:
+                           checkpoint_every: int = 0, resume: bool = False,
+                           final_planes: bool = False, final_rows=None) -> dict:
     """Sample observables of a spatially sharded lattice (rows, or rows and
     compact columns when ``col_axis`` is given).
+
+    ``lattice0``: the (R, C) start, a tensor that is cut into the shards, or
+    a :class:`MeshStart`, whose shards are drawn on their devices.
 
     Returns ``{"magnetization", "energy"}``, (n_samples,) float64 CPU
     tensors (per-spin magnetization and total energy after each block of
     n_sweeps sweeps that follows n_burnin sweeps of burn-in), equal on
-    every rank; ``"final_planes"``, the global (red, black) on the first
-    shard's device (across processes gathered on rank 0, None on the
-    others); and ``"shards"``, {(i, j): (red, black)} of the shards this
-    process holds. The planes stay sharded on the mesh for the whole run;
-    across processes each rank sums its shards' spins and bonds per sample
-    and the ranks add them up in float64 once, at the end (and at each
-    snapshot). Sweep s of the run (burn-in first, then the samples' blocks)
-    draws from the run's base under the global sweep counter s. ``fused``
-    as in :func:`sharded_checkerboard_sweeps`. ``dtype``: plane storage,
-    default bfloat16 on the fused path (±1 spins are exact in it) and
-    float32 otherwise.
+    every rank, and ``"shards"``, {(i, j): (red, black)} of the shards this
+    process holds. With ``final_planes=True`` also ``"final_planes"``, the
+    global (red, black) gathered on the first shard's device (across
+    processes on rank 0, None on the others); with ``final_rows``, a
+    sequence of global rows, also ``"final_rows"``, those rows of the final
+    (red, black) planes as (len(final_rows), C/2) CPU tensors (one process).
+    The planes stay sharded on the mesh for the whole run; each shard's
+    spins and bonds are summed per sample on its device, and the sums are
+    added up in float64 once, at the end (and at each snapshot), across
+    processes by the ranks. Sweep s of the run (burn-in first, then the
+    samples' blocks) draws from the run's base under the global sweep
+    counter s. ``fused`` as in :func:`sharded_checkerboard_sweeps`.
+    ``dtype``: plane storage, default bfloat16 on the fused path (±1 spins
+    are exact in it) and float32 otherwise.
 
     ``checkpoint_path`` with ``checkpoint_every > 0`` snapshots the run
     after every ``checkpoint_every`` samples: the base, the merged planes,
@@ -425,23 +520,35 @@ def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_sample
     processes resumes on M. The resumed call may ask for more samples than
     the killed one (a longer horizon): it keeps the snapshot's samples and
     runs the rest. Fewer samples than the snapshot holds raise
-    ``ConfigurationError``.
+    ``ConfigurationError``, and so does a snapshot of a run from a
+    :class:`MeshStart`: a snapshot gathers the whole lattice on one device.
     """
+    drawn = isinstance(lattice0, MeshStart)
     R, C = lattice0.shape
     grid, fused = _route(mesh, R, C // 2, axis_name, col_axis, fused, None)
     if dtype is None:
         dtype = torch.bfloat16 if fused else torch.float32
-    red, black = split_checkerboard(lattice0.to(dtype))
+    checkpointing = checkpoint_path is not None and checkpoint_every > 0
+    if drawn and checkpointing:
+        raise ConfigurationError(
+            "a lattice drawn on the mesh is not snapshotted: a snapshot gathers the whole "
+            "lattice on one device")
+    if drawn:
+        planes = list(_draw_shards(grid, lattice0, dtype))
+    else:
+        red, black = split_checkerboard(lattice0.to(dtype))
+        planes = [_scatter(red, grid), _scatter(black, grid)]
     base = _base(seed)
-    reds, blacks = _scatter(red, grid), _scatter(black, grid)
     col_sharded = col_axis is not None
     run = dict(fused=fused, base=base, T=temperature, periodic=periodic, J=J, field=field,
                col_sharded=col_sharded)
     dev = grid.home
     ms = torch.empty(n_samples, dtype=torch.float64, device=dev)
     es = torch.empty(n_samples, dtype=torch.float64, device=dev)
-    sums = torch.zeros((n_samples, 2), dtype=torch.float64, device=dev)   # spins, bonds
-    checkpointing = checkpoint_path is not None and checkpoint_every > 0
+    # Each local shard's (spins, bonds) of every sample, int64 on its device.
+    sums = {(i, j): torch.zeros((n_samples, 2), dtype=torch.int64, device=grid.devs[i][j])
+            for i, j in grid.local}
+    scratch = {}
     done = 0
     if resume and checkpointing and checkpoint_exists(checkpoint_path):
         st = restore_state(checkpoint_path, {
@@ -451,32 +558,45 @@ def sharded_lattice_sample(mesh: Mesh, seed, lattice0: torch.Tensor, *, n_sample
             raise ConfigurationError(
                 f"the snapshot at {checkpoint_path} holds {done} samples; a resumed run "
                 f"needs n_samples >= {done}, got {n_samples}")
-        reds, blacks = _scatter(st["red"], grid), _scatter(st["black"], grid)
+        planes = [_scatter(st["red"], grid), _scatter(st["black"], grid)]
         ms[:done] = st["ms"][:done]
         es[:done] = st["es"][:done]
     else:
-        reds, blacks = _run_sweeps(grid, reds, blacks, range(n_burnin), **run)
+        with profiling.annotate("sharded.sweeps"):
+            _run_sweeps(grid, planes, range(n_burnin), **run)
     finished = done
 
     def finish(upto: int):
-        """The observables of samples finished..upto from the ranks' sums."""
-        part = sums[finished:upto]
-        if grid.multi and upto > finished:
-            part = distributed.all_reduce_sum(part)
-        ms[finished:upto] = part[:, 0] / (R * C)
-        es[finished:upto] = -J * part[:, 1] - field * part[:, 0]
+        """The observables of samples finished..upto from the shards' sums,
+        added on ``dev`` (and over the ranks)."""
+        with profiling.annotate("sharded.observables"):
+            part = torch.zeros((upto - finished, 2), dtype=torch.int64, device=dev)
+            for k in grid.local:
+                part += _copy(sums[k][finished:upto], dev)
+            part = part.to(torch.float64)
+            if grid.multi and upto > finished:
+                part = distributed.all_reduce_sum(part)
+            ms[finished:upto] = part[:, 0] / (R * C)
+            es[finished:upto] = -J * part[:, 1] - field * part[:, 0]
         return upto
 
     for i in range(done, n_samples):
         start = n_burnin + i * n_sweeps
-        reds, blacks = _run_sweeps(grid, reds, blacks, range(start, start + n_sweeps), **run)
-        sums[i] = _local_observables(grid, reds, blacks, periodic, col_sharded)
+        with profiling.annotate("sharded.sweeps"):
+            _run_sweeps(grid, planes, range(start, start + n_sweeps), **run)
+        with profiling.annotate("sharded.observables"):
+            _shard_sums(grid, *planes, periodic, col_sharded, sums, scratch, i)
         if checkpointing and ((i + 1) % checkpoint_every == 0 or i + 1 == n_samples):
             finished = finish(i + 1)
             _snapshot(grid, checkpoint_path, {"base": run["base"], "done": i + 1, "ms": ms,
-                                              "es": es}, reds, blacks)
+                                              "es": es}, *planes)
     finish(n_samples)
-    final = _gather(grid, reds, blacks)
-    return {"magnetization": ms.cpu(), "energy": es.cpu(),
-            "final_planes": final if grid.rank == 0 else None,
-            "shards": {(i, j): (reds[i][j], blacks[i][j]) for i, j in grid.local}}
+    reds, blacks = planes
+    out = {"magnetization": ms.cpu(), "energy": es.cpu(),
+           "shards": {(i, j): (reds[i][j], blacks[i][j]) for i, j in grid.local}}
+    if final_planes:
+        gathered = _gather(grid, reds, blacks)
+        out["final_planes"] = gathered if grid.rank == 0 else None
+    if final_rows is not None:
+        out["final_rows"] = _final_rows(grid, reds, blacks, final_rows)
+    return out

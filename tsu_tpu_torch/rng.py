@@ -11,8 +11,9 @@ depends only on the site's global coordinates, so any thread block that
 redraws a halo site draws what the site's owner drew. ``philox_words`` is the
 plain PyTorch version of the generator in
 ``tsu_tpu_torch/csrc/checkerboard_fused.cu`` and matches it bit for bit;
-``sweep_keys`` builds the per-lattice keys of the batched kernel and
-``bond_key`` the key of a single-lattice half-sweep.
+``sweep_keys`` builds the per-lattice keys of the batched kernel,
+``bond_key`` the key of a single-lattice half-sweep and ``draw_key`` the key
+of a lattice drawn on the device.
 """
 
 from __future__ import annotations
@@ -120,6 +121,17 @@ def bond_key(seed: int, color: int, sweep: int):
     """Philox key (fold_seed(seed, colour), sweep) of a single-lattice
     half-sweep (K3, K4), as two uint32 ints; colour 0 is red, 1 black."""
     return fold_seed(seed, color) & MASK32, sweep & MASK32
+
+
+# The second key word of a lattice's initial draw on the device (K12): a tag
+# no sweep counter of a run reaches, so a draw never repeats a sweep's words.
+DRAW_TAG = 0xD1A3_5EED
+
+
+def draw_key(base: int):
+    """Philox key (fold_seed(base), DRAW_TAG) of a lattice's initial draw on
+    the device (K12), as two uint32 ints."""
+    return fold_seed(base) & MASK32, DRAW_TAG
 
 
 def _mulhilo(m: int, a: torch.Tensor):

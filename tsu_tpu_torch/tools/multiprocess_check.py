@@ -123,7 +123,7 @@ def _sample(case, device):
         periodic=case.get("periodic", True),
         col_axis="col" if case["mesh"].get("cols", 1) > 1 else None, fused=case.get("fused"),
         checkpoint_path=ck.get("path"), checkpoint_every=ck.get("every", 0),
-        resume=ck.get("resume", False))
+        resume=ck.get("resume", False), final_planes=True)
     if not ck.get("stop_after_first"):
         out = run()
         out.pop("shards")
